@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA Hopper card.
+
+    python3 chip_smoke.py                  # everything, as the acceptance run
+    python3 chip_smoke.py --phases device,build,kernels   # a short first check
+
+Phases, each printing one JSON line:
+  device   the card (torch and nvidia-smi), torch / CUDA / nvcc versions
+  build    first use of the kernels' build (one nvcc per source, in parallel)
+  kernels  each hand-written kernel against its plain PyTorch version on the
+           card over a grid of shapes (fp32 at 2e-5, bf16 at 2e-2), and timed
+           at the serving shapes beside its plain version, one library call
+           (a yardstick only: the port never calls it) and its roofline bound
+  serve    qwen2.5-3b at full width and depth, bf16, random seeded weights:
+           8 requests of 512 prompt tokens through ServeEngine (4 slots,
+           16 new tokens each); asserts the kernels' launch counts
+  path     the same engine at 4 layers, once through the kernels and once with
+           mode="reference", from the same weights: first-step logits compared
+  profile  (only when named in --phases) one prefill and four decode steps of
+           the full model under torch.profiler: wall time, device-busy time,
+           idle share and the kernels that take most of the device time
+Then one line {"kernels": [...]}, the card's name and power limit, and the last
+line {"ok": true, "device": {...}}. Any failing phase ends the run non-zero.
+Needs a CUDA device and nvcc; imports torch and the port only.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.configs import registry                      # noqa: E402
+from repro_torch.kernels import _build, ops                   # noqa: E402
+from repro_torch.kernels import flash_attention as fa         # noqa: E402
+from repro_torch.kernels import flash_decode as fd            # noqa: E402
+from repro_torch.models import api                            # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
+
+# published peaks of one H100 SXM (dense): operations per second by input type,
+# and bytes per second of device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LOGITS_TOL = 5e-2     # bf16 model logits: two roundings to bf16 per layer drift apart
+DEV = "cuda"
+
+FWD_GRID = [  # B, H, Hkv, L, S, D
+    (2, 4, 2, 128, 128, 64),
+    (1, 8, 2, 256, 256, 128),
+    (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
+    (1, 4, 1, 64, 384, 128),       # L != S (non-causal only)
+    (1, 2, 2, 192, 192, 112),      # head_dim 112
+    (1, 16, 2, 512, 512, 128),     # serving shape, G = 8
+]
+DECODE_GRID = [  # B, H, Hkv, S, D, clen
+    (2, 8, 2, 512, 64, 300),
+    (1, 16, 8, 1024, 128, 1024),
+    (2, 4, 4, 256, 64, 1),
+    (1, 6, 1, 640, 128, 77),       # G = 6, ragged length
+    (4, 16, 2, 1024, 128, 512),    # serving shape, G = 8
+    (4, 16, 2, 1024, 128, 528),
+]
+SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
+SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(DEV).to(dtype)
+
+
+def compare(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (got - want).abs()
+    tol = TOL[dtype]
+    bad = err > tol + tol * want.abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements beyond atol=rtol={tol}, "
+                             f"max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def time_ms(fn, iters=50, warmup=5):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def sdpa(q, k, v, causal):
+    """One library call computing the same function; q (B,H,L,D), k/v (B,Hkv,S,D)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-2:]
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda, "nvcc": " | ".join(nvcc)})
+    return smi
+
+
+def phase_build(verbose):
+    t0 = time.time()
+    _build.build_all(verbose_ptxas=verbose)
+    for name in _build.SOURCES:
+        _build.load(name)
+    emit({"phase": "build", "seconds": round(time.time() - t0, 2),
+          "nvcc_seconds": round(_build.last_build_seconds, 2),
+          "dir": str(_build.build_dir())})
+    if verbose:
+        print(_build.last_build_log, file=sys.stderr, flush=True)
+
+
+def fwd_costs(B, H, Hkv, L, S, D, dtype, causal):
+    pairs = L * (L + 1) // 2 if causal else L * S
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * B * H * L * D + 2 * B * Hkv * S * D) * dtype.itemsize
+    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def dec_costs(B, H, Hkv, D, clen, dtype):
+    flops = 4 * B * H * D * clen
+    nbytes = (2 * B * Hkv * clen * D + 2 * B * H * D) * dtype.itemsize
+    return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def bound(ops_ms, bytes_ms):
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_kernels():
+    rng = np.random.default_rng(0)
+    worst = {"flash_fwd": 0.0, "flash_decode": 0.0}
+    cases = {"flash_fwd": 0, "flash_decode": 0}
+
+    # the grid, in the kernels' own layout (contiguous (B,H,L,D) / (B,Hkv,S,D))
+    for (B, H, Hkv, L, S, D) in FWD_GRID:
+        for causal in (True, False):
+            if causal and L != S:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                q = randn(rng, (B, H, L, D), dtype)
+                k = randn(rng, (B, Hkv, S, D), dtype)
+                v = randn(rng, (B, Hkv, S, D), dtype)
+                got = fa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = fa.flash_attention_plain(q, k, v, causal=causal)
+                err = compare(got, want, dtype,
+                              f"flash_fwd {(B, H, Hkv, L, S, D)} causal={causal} {dtype}")
+                worst["flash_fwd"] = max(worst["flash_fwd"], err)
+                cases["flash_fwd"] += 1
+    for (B, H, Hkv, S, D, clen) in DECODE_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(rng, (B, H, D), dtype)
+            kc = randn(rng, (B, Hkv, S, D), dtype)
+            vc = randn(rng, (B, Hkv, S, D), dtype)
+            what = f"flash_decode {(B, H, Hkv, S, D, clen)} {dtype}"
+            got = fd.flash_decode(q, kc, vc, clen)
+            torch.cuda.synchronize()
+            want = fd.flash_decode_plain(q, kc, vc, clen)
+            err = compare(got, want, dtype, what)
+            acc, m, l = fd.flash_decode(q, kc, vc, clen, return_partials=True)
+            torch.cuda.synchronize()
+            acc_w, m_w, l_w = fd.flash_decode_plain(q, kc, vc, clen, return_partials=True)
+            # partials carry no rounding to the query type: fp32 tolerance on
+            # the normalised result, for both input types
+            err = max(err, compare(acc / l[..., None], acc_w / l_w[..., None],
+                                   torch.float32, what + " partials"))
+            compare(m + torch.log(l), m_w + torch.log(l_w), torch.float32,
+                    what + " partials log-sum-exp")
+            worst["flash_decode"] = max(worst["flash_decode"], err)
+            cases["flash_decode"] += 2
+
+    # the serving shapes, in the model-side layout, through ops (strided views)
+    s = SERVE_FWD
+    dt = torch.bfloat16
+    q = randn(rng, (s["B"], s["L"], s["H"], s["D"]), dt)
+    k = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
+    v = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
+    got = ops.mha_forward(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ops.mha_forward(q, k, v, causal=True, mode="reference")
+    if not got.is_contiguous():
+        raise AssertionError("mha_forward: the kernel's output should be contiguous (B,L,H,D)")
+    fwd_err = compare(got, want, dt, "flash_fwd serving shape via ops")
+    worst["flash_fwd"] = max(worst["flash_fwd"], fwd_err)
+    cases["flash_fwd"] += 1
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    compare(sdpa(qt, kt, vt, True).transpose(1, 2), want, dt, "library yardstick (forward)")
+    fwd_ms = time_ms(lambda: ops.mha_forward(q, k, v, causal=True))
+    fwd_plain = time_ms(lambda: ops.mha_forward(q, k, v, causal=True, mode="reference"), iters=10)
+    fwd_lib = time_ms(lambda: sdpa(qt, kt, vt, True))
+    fwd_bound, fwd_by = bound(*fwd_costs(s["B"], s["H"], s["Hkv"], s["L"], s["L"], s["D"], dt, True))
+
+    # decode: cycle over the 36 layers' slices of one cache as a decode step
+    # does, so that each launch finds its K/V rows cold in L2
+    s = SERVE_DEC
+    cache_k = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
+    cache_v = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
+    qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
+    clen = s["clen"]
+    for layer in (0, s["layers"] - 1):
+        got = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen)
+        torch.cuda.synchronize()
+        want = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen, mode="reference")
+        dec_err = compare(got, want, dt, f"flash_decode serving shape via ops, layer {layer}")
+        worst["flash_decode"] = max(worst["flash_decode"], dec_err)
+        cases["flash_decode"] += 1
+    qdt = qd.transpose(1, 2)
+    compare(sdpa(qdt, cache_k[0, :, :clen].transpose(1, 2),
+                 cache_v[0, :, :clen].transpose(1, 2), False).transpose(1, 2),
+            ops.decode_forward(qd, cache_k[0], cache_v[0], clen, mode="reference"),
+            dt, "library yardstick (decode)")
+
+    def sweep(fn):
+        def run():
+            for layer in range(s["layers"]):
+                fn(layer)
+        return run
+
+    n = s["layers"]
+    dec_ms = time_ms(sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen)),
+                     iters=10, warmup=2) / n
+    dec_plain = time_ms(sweep(lambda i: ops.decode_forward(
+        qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n
+    dec_lib = time_ms(sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
+                                           cache_v[i, :, :clen].transpose(1, 2), False)),
+                      iters=10, warmup=2) / n
+    dec_bound, dec_by = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"], clen, dt))
+
+    emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
+          "tolerance": {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}})
+    return [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:110",
+         "launches": 0, "max_abs_err": worst["flash_fwd"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": fwd_lib, "cases": cases["flash_fwd"],
+         "timed_at": "B1 H16 Hkv2 L=S=512 D128 causal bf16"},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:83",
+         "launches": 0, "max_abs_err": worst["flash_decode"], "ms": dec_ms,
+         "plain_ms": dec_plain, "bound_ms": dec_bound, "bound_by": dec_by,
+         "library_ms": dec_lib, "cases": cases["flash_decode"],
+         "timed_at": f"B4 H16 Hkv2 S_max1024 cache_len{clen} D128 bf16, cold L2"},
+    ]
+
+
+def reset_counts():
+    fa.launches = 0
+    fd.launches = 0
+
+
+def make_requests(cfg, n, prompt_len, max_new, seed=0):
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, prompt_len),
+                    max_new=max_new) for i in range(n)]
+
+
+def drive(eng, reqs):
+    """Runs the engine to the end; returns (prefill ms per request, decode ms per step)."""
+    prefill_ms, decode_ms = [], []
+    inner = eng._prefill_slot
+
+    def timed_prefill(slot, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(slot, req)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng._prefill_slot = timed_prefill
+    for r in reqs:
+        eng.submit(r)
+    while eng.queue or any(eng.active):
+        before = sum(prefill_ms)
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3 - (sum(prefill_ms) - before))
+    return prefill_ms, decode_ms
+
+
+def phase_serve(kernels):
+    cfg = registry.get("qwen2.5-3b")
+    n_req, prompt_len, slots, max_new, max_seq = 8, 512, 4, 16, 1024
+    t0 = time.time()
+    params = api.init(cfg, 0, device=DEV)
+    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, device=DEV)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    reqs = make_requests(cfg, n_req, prompt_len, max_new)
+
+    reset_counts()
+    t0 = time.time()
+    prefill_ms, decode_ms = drive(eng, reqs)
+    wall = time.time() - t0
+    counts = {"flash_fwd": fa.launches, "flash_decode": fd.launches}
+
+    L = cfg.num_layers
+    if counts["flash_fwd"] != n_req * L:
+        raise AssertionError(f"forward launches {counts['flash_fwd']} != {n_req} x {L}")
+    if counts["flash_decode"] != eng.steps * L or eng.steps == 0:
+        raise AssertionError(f"decode launches {counts['flash_decode']} != {eng.steps} x {L}")
+    for r in reqs:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"request {r.rid}: bad output {r.out}")
+    for kern in kernels:
+        kern["launches"] = counts[kern["name"]]
+    emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "compute_dtype": cfg.compute_dtype, "requests": n_req, "prompt_len": prompt_len,
+          "slots": slots, "max_new": max_new, "max_seq": max_seq,
+          "init_seconds": round(init_s, 2), "decode_steps": eng.steps, "launches": counts,
+          "prefill_ms_per_request": prefill_ms, "decode_ms_per_step_median":
+          float(np.median(decode_ms)), "decode_ms_per_step_first": decode_ms[0],
+          "tokens_per_s": n_req * max_new / wall, "wall_seconds": wall,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "sample_tokens": reqs[0].out})
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_path():
+    cfg = dataclasses.replace(registry.get("qwen2.5-3b"), num_layers=4)
+    params = api.cast_params(cfg, api.init(cfg, 1, device=DEV))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 512))).to(DEV)
+    logits = {}
+    with torch.no_grad():
+        for mode in (None, "reference"):
+            hidden, cache = api.prefill(cfg, params, {"tokens": toks}, max_seq=1024, mode=mode)
+            first, _ = api.decode(cfg, params, cache, toks[:, -1:], mode=mode)
+            logits[mode] = (api.unembed(cfg, params, hidden[:, -1:]).float(), first.float())
+    errs = []
+    for got, want in zip(logits[None], logits["reference"]):
+        if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+            raise AssertionError(f"path check: logits shape {tuple(got.shape)} or values are off")
+        err = (got - want).abs()
+        if (err > LOGITS_TOL + LOGITS_TOL * want.abs()).any():
+            raise AssertionError(f"path check: logits differ, max abs err {float(err.max()):.3e}")
+        errs.append(float(err.max()))
+
+    outs = {}
+    for mode in (None, "reference"):
+        eng = ServeEngine(cfg, params, slots=4, max_seq=1024, device=DEV, mode=mode)
+        reqs = make_requests(cfg, 4, 512, 16, seed=2)
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs[mode] = [t for r in reqs for t in r.out]
+    same = sum(a == b for a, b in zip(outs[None], outs["reference"]))
+    emit({"phase": "path", "layers": cfg.num_layers, "logits_tolerance": LOGITS_TOL,
+          "prefill_logits_max_abs_err": errs[0], "decode_logits_max_abs_err": errs[1],
+          "greedy_tokens_equal_share": same / len(outs[None]), "tokens": len(outs[None])})
+
+
+def profiled(fn, top=8):
+    """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
+
+    ``fn`` is run twice and must do the same work each time. The idle share sets
+    the traced run's device time against the untraced run's wall time, because
+    tracing slows the host.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:      # host-side op rows repeat their kernels' time
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return {"wall_ms": wall_ms, "traced_wall_ms": traced_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "device_kernel_launches": sum(r[1] for r in rows),
+            "top_kernels": [{"ms": round(ms, 4), "count": n, "name": name[:80]}
+                            for ms, n, name in rows[:top]]}
+
+
+def phase_profile():
+    """Where a prefill and a decode step spend their time (not part of the default run)."""
+    cfg = registry.get("qwen2.5-3b")
+    eng = ServeEngine(cfg, api.init(cfg, 0, device=DEV), slots=4, max_seq=1024, device=DEV)
+    reqs = make_requests(cfg, 5, 512, 64)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(3):                      # warm up: 4 prefills, 3 decode steps
+        eng.step()
+    spare = eng.queue.pop(0)
+    pre = profiled(lambda: eng._prefill_slot(0, spare))
+    steps = 4
+    dec = profiled(lambda: [eng.step() for _ in range(steps)])
+    for key in ("wall_ms", "traced_wall_ms", "device_busy_ms", "device_kernel_launches"):
+        dec[key] = dec[key] / steps
+    for row in dec["top_kernels"]:
+        row["ms"], row["count"] = round(row["ms"] / steps, 4), row["count"] // steps
+    emit({"phase": "profile", "model": cfg.name, "layers": cfg.num_layers,
+          "prefill_512_tokens": pre, "decode_step_4_slots": dec})
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="device,build,kernels,serve,path")
+    ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+
+    smi = phase_device()
+    if "build" in phases:
+        phase_build(args.ptxas)
+    kernels = phase_kernels() if "kernels" in phases else []
+    if "serve" in phases:
+        phase_serve(kernels)
+    if "path" in phases:
+        phase_path()
+    if "profile" in phases:
+        phase_profile()
+    torch.cuda.synchronize()
+    complete = all(p in phases for p in ("build", "kernels", "serve", "path"))
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+    return 0 if complete else 4
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

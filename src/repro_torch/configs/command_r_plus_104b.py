@@ -1,0 +1,19 @@
+"""Command-R+-104B: 64L d12288 96H (GQA kv=8) d_ff=33792 vocab=256000,
+no-bias. [hf:CohereForAI/c4ai-command-r-plus]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    num_layers=64,
+    d_model=12288,
+    num_heads=96,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=33792,
+    vocab_size=256000,
+    norm="layernorm",
+    mlp="swiglu",
+    tie_embeddings=True,
+    notes="GQA, no-bias",
+)

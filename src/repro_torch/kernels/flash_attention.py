@@ -1,0 +1,134 @@
+"""FlashAttention forward: wrapper of the hand-written Hopper kernel.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
+(``_flash_fwd_kernel`` / ``flash_attention``). The kernel is
+``csrc/flash_fwd.cu``: one block per (batch, head, 64-row query tile) loops
+over the key/value tiles, where the TPU grid carried ``(acc, m, l)`` across its
+innermost sequential axis. At serving shapes the byte bound and the
+tensor-core operation bound are about equal (1.4 and 1.1 microseconds a call);
+this first version computes both products with plain fp32 FMAs on shared-memory
+tiles, so it is bound by its own FMA rate far above either, and answers cost
+with tile reuse and the causal tile skip only. Tensor cores are a later version.
+
+The public layout is the TPU kernel's, q ``(B, H, L, D)`` and k/v
+``(B, Hkv, S, D)``, but the tensors may be strided views (only D has to be
+contiguous): the kernel takes element strides, so ``ops.mha_forward`` passes
+transposed views of the model-side ``(B, L, H, D)`` tensors and nothing is
+copied or padded.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes
+``flash_attention_plain``. ``launches`` counts kernel launches, nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+DEFAULT_BLOCK_K = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0        # number of kernel launches made by ``flash_attention``
+_fn = None
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch version of the kernel: same arithmetic, same layout.
+
+    Online softmax over KV tiles of ``block_k`` with fp32 ``(acc, m, l)``, the
+    ``-1e30`` sentinel, P kept fp32 into P·V, ``acc / max(l, 1e-30)`` at the end.
+    """
+    B, H, L, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, L, D).float()
+    rows = torch.arange(L, device=q.device)[:, None]
+    m = torch.full((B, Hkv, G, L), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, L, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, S, block_k):
+        kj = k[:, :, k0:k0 + block_k].float()
+        vj = v[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bhgld,bhsd->bhgls", qg, kj) * scale
+        if causal:
+            cols = k0 + torch.arange(kj.shape[2], device=q.device)[None, :]
+            s = torch.where(cols > rows, torch.full_like(s, NEG_INF), s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        m = m_new
+        acc = acc * corr[..., None] + torch.einsum("bhgls,bhsd->bhgld", p, vj)
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, H, L, D).to(q.dtype)
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_fwd").repro_flash_fwd
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = ([p, p, p, p, i] + [i] * 6 + [i64] * 12
+                       + [ctypes.c_float, i, p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (B,H,L,D) and k/v (B,Hkv,S,D)")
+    B, H, L, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if H % k.shape[1] != 0:
+        raise ValueError(f"{H} query heads do not group over {k.shape[1]} KV heads")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, all "
+                        f"alike; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D > 128:
+        raise ValueError(f"flash_attention kernel supports head_dim <= 128, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous")
+        if t.device != q.device:
+            raise ValueError("q, k and v must lie on one device")
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: (B, H, L, D); k/v: (B, Hkv, S, D) -> (B, H, L, D), strides kept."""
+    global launches
+    _check(q, k, v)
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("the causal mask has no query offset: it needs L == S, "
+                         f"got L={q.shape[2]}, S={k.shape[2]}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention has no kernel for {q.device}")
+    B, H, L, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    # same strides as q when q is a dense view, so a transposed view of a
+    # (B, L, H, D) tensor gives an output that transposes back for free
+    o = torch.empty_like(q)
+    if o.stride(3) != 1:
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       _DTYPE_CODE[q.dtype], B, H, Hkv, L, S, D,
+                       q.stride(0), q.stride(1), q.stride(2),
+                       k.stride(0), k.stride(1), k.stride(2),
+                       v.stride(0), v.stride(1), v.stride(2),
+                       o.stride(0), o.stride(1), o.stride(2),
+                       1.0 / math.sqrt(D), int(causal), stream)
+    _build.check(err, "flash_fwd")
+    launches += 1
+    return o

@@ -8,14 +8,20 @@ Phases, each printing one JSON line:
   device   the card (torch and nvidia-smi), torch / CUDA / nvcc versions
   build    first use of the kernels' build (one nvcc per source, in parallel)
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card over a grid of shapes (fp32 at 2e-5, bf16 at 2e-2), and timed
-           at the serving shapes beside its plain version, one library call
-           (a yardstick only: the port never calls it) and its roofline bound
+           card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu, bf16
+           at 2e-2 through flash_fwd_sm90.cu), and timed at the serving shapes
+           beside its plain version, one library call (a yardstick only: the
+           port never calls it) and its roofline bound. Kernel and library
+           times are device times (kernel durations from torch.profiler);
+           wrapper_ms is the host-clocked time of a call through the wrapper
   serve    qwen2.5-3b at full width and depth, bf16, random seeded weights:
            8 requests of 512 prompt tokens through ServeEngine (4 slots,
            16 new tokens each); asserts the kernels' launch counts
   path     the same engine at 4 layers, once through the kernels and once with
            mode="reference", from the same weights: first-step logits compared
+  path_f32 the model in float32 at 2 layers: the engine's prefills go through
+           the fp32 kernel (launch counts asserted), and first-step logits
+           match mode="reference" at 1e-3
   profile  (only when named in --phases) one prefill and four decode steps of
            the full model under torch.profiler: wall time, device-busy time,
            idle share and the kernels that take most of the device time
@@ -51,6 +57,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 LOGITS_TOL = 5e-2     # bf16 model logits: two roundings to bf16 per layer drift apart
+LOGITS_TOL_F32 = 1e-3  # fp32 model logits: the same arithmetic summed in another order
 DEV = "cuda"
 
 FWD_GRID = [  # B, H, Hkv, L, S, D
@@ -61,6 +68,11 @@ FWD_GRID = [  # B, H, Hkv, L, S, D
     (1, 2, 2, 192, 192, 112),      # head_dim 112
     (1, 16, 2, 512, 512, 128),     # serving shape, G = 8
 ]
+FWD_EXTRA = [  # bf16 only, causal: deep K/V rings, many diagonal tiles
+    (1, 16, 2, 1024, 1024, 64),
+    (2, 32, 8, 2048, 2048, 128),
+    (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
+]
 DECODE_GRID = [  # B, H, Hkv, S, D, clen
     (2, 8, 2, 512, 64, 300),
     (1, 16, 8, 1024, 128, 1024),
@@ -70,6 +82,7 @@ DECODE_GRID = [  # B, H, Hkv, S, D, clen
     (4, 16, 2, 1024, 128, 528),
 ]
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
+LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 
 
@@ -105,6 +118,46 @@ def time_ms(fn, iters=50, warmup=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_rows(prof):
+    """(ms, count, name) of each kernel in a profile, largest first."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:      # host-side op rows repeat their kernels' time
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def device_ms(fn, iters=20, warmup=3, attempts=3):
+    """Device time of one call of ``fn``: the durations of the kernels it
+    launches over ``iters`` calls (torch.profiler), summed, over ``iters``.
+    Gaps between kernels do not count, so the host's enqueue rate cannot hide
+    the kernels' own time. The profiler has been seen to return a window with
+    no kernel records: a window whose kernel count is not a whole multiple of
+    ``iters`` is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        launched = sum(r[1] for r in rows)
+        if launched and launched % iters == 0:
+            return sum(r[0] for r in rows) / iters
+    raise AssertionError(f"the profiler recorded no whole window of {iters} calls "
+                         f"in {attempts} attempts")
 
 
 def sdpa(q, k, v, causal):
@@ -158,27 +211,58 @@ def bound(ops_ms, bytes_ms):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_kernels():
-    rng = np.random.default_rng(0)
-    worst = {"flash_fwd": 0.0, "flash_decode": 0.0}
-    cases = {"flash_fwd": 0, "flash_decode": 0}
-
-    # the grid, in the kernels' own layout (contiguous (B,H,L,D) / (B,Hkv,S,D))
-    for (B, H, Hkv, L, S, D) in FWD_GRID:
+def fwd_grid_cases():
+    """(shape, causal, dtype) of every forward case held against the plain version."""
+    for shape in FWD_GRID:
         for causal in (True, False):
-            if causal and L != S:
+            if causal and shape[3] != shape[4]:
                 continue
             for dtype in (torch.float32, torch.bfloat16):
-                q = randn(rng, (B, H, L, D), dtype)
-                k = randn(rng, (B, Hkv, S, D), dtype)
-                v = randn(rng, (B, Hkv, S, D), dtype)
-                got = fa.flash_attention(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                want = fa.flash_attention_plain(q, k, v, causal=causal)
-                err = compare(got, want, dtype,
-                              f"flash_fwd {(B, H, Hkv, L, S, D)} causal={causal} {dtype}")
-                worst["flash_fwd"] = max(worst["flash_fwd"], err)
-                cases["flash_fwd"] += 1
+                yield shape, causal, dtype
+    for shape in FWD_EXTRA:
+        yield shape, True, torch.bfloat16
+
+
+def check_tma_refusal(rng):
+    """A bf16 view TMA cannot address raises; it never takes another kernel."""
+    flat = randn(rng, (1 + 4 * 64 * 64,), torch.bfloat16)
+    q = flat[1:].view(1, 4, 64, 64)                  # base 2 bytes off a 16-byte boundary
+    kv = randn(rng, (1, 2, 64, 64), torch.bfloat16)
+    before = (fa.launches, fa.launches_sm90, fa.launches_f32)
+    try:
+        fa.flash_attention(q, kv, kv, causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_fwd: a bf16 view TMA cannot address did not raise")
+    if (fa.launches, fa.launches_sm90, fa.launches_f32) != before:
+        raise AssertionError("flash_fwd: a refused call moved a launch counter")
+
+
+def phase_kernels():
+    rng = np.random.default_rng(0)
+    names = ("flash_fwd", "flash_fwd_f32", "flash_decode")
+    worst = dict.fromkeys(names, 0.0)
+    cases = dict.fromkeys(names, 0)
+    worst_pv_bf16 = 0.0       # the bf16 kernel against the plain version that rounds P as it does
+
+    # the grid, in the kernels' own layout (contiguous (B,H,L,D) / (B,Hkv,S,D))
+    for (B, H, Hkv, L, S, D), causal, dtype in fwd_grid_cases():
+        name = "flash_fwd" if dtype == torch.bfloat16 else "flash_fwd_f32"
+        q = randn(rng, (B, H, L, D), dtype)
+        k = randn(rng, (B, Hkv, S, D), dtype)
+        v = randn(rng, (B, Hkv, S, D), dtype)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        what = f"{name} {(B, H, Hkv, L, S, D)} causal={causal} {dtype}"
+        worst[name] = max(worst[name], compare(got, want, dtype, what))
+        cases[name] += 1
+        if dtype == torch.bfloat16:
+            err = (got.float() - fa.flash_attention_plain(q, k, v, causal=causal,
+                                                          pv_bf16=True).float()).abs()
+            worst_pv_bf16 = max(worst_pv_bf16, float(err.max()))
+    check_tma_refusal(rng)
     for (B, H, Hkv, S, D, clen) in DECODE_GRID:
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(rng, (B, H, D), dtype)
@@ -201,30 +285,51 @@ def phase_kernels():
             worst["flash_decode"] = max(worst["flash_decode"], err)
             cases["flash_decode"] += 2
 
-    # the serving shapes, in the model-side layout, through ops (strided views)
+    # the serving shapes, in the model-side layout, through ops (strided views);
+    # the fp32 kernel is timed at the same shape in fp32
     s = SERVE_FWD
-    dt = torch.bfloat16
-    q = randn(rng, (s["B"], s["L"], s["H"], s["D"]), dt)
-    k = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
-    v = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
-    got = ops.mha_forward(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    want = ops.mha_forward(q, k, v, causal=True, mode="reference")
-    if not got.is_contiguous():
-        raise AssertionError("mha_forward: the kernel's output should be contiguous (B,L,H,D)")
-    fwd_err = compare(got, want, dt, "flash_fwd serving shape via ops")
-    worst["flash_fwd"] = max(worst["flash_fwd"], fwd_err)
-    cases["flash_fwd"] += 1
+    fwd = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "flash_fwd" if dt == torch.bfloat16 else "flash_fwd_f32"
+        q = randn(rng, (s["B"], s["L"], s["H"], s["D"]), dt)
+        k = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
+        v = randn(rng, (s["B"], s["L"], s["Hkv"], s["D"]), dt)
+        got = ops.mha_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = ops.mha_forward(q, k, v, causal=True, mode="reference")
+        if not got.is_contiguous():
+            raise AssertionError("mha_forward: the kernel's output should be contiguous (B,L,H,D)")
+        worst[name] = max(worst[name], compare(got, want, dt, f"{name} serving shape via ops"))
+        cases[name] += 1
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        compare(sdpa(qt, kt, vt, True).transpose(1, 2), want, dt,
+                f"library yardstick (forward, {dt})")
+        fwd[name] = dict(
+            ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+            wrapper_ms=time_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+            plain_ms=time_ms(lambda: ops.mha_forward(q, k, v, causal=True, mode="reference"),
+                             iters=10),
+            library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
+            library_wrapper_ms=time_ms(lambda: sdpa(qt, kt, vt, True)))
+        fwd[name]["bound_ms"], fwd[name]["bound_by"] = bound(
+            *fwd_costs(s["B"], s["H"], s["Hkv"], s["L"], s["L"], s["D"], dt, True))
+
+    # the bf16 kernel at a long context as well (more K/V tiles than ring stages)
+    B, H, Hkv, L, D = LONG_FWD
+    q = randn(rng, (B, L, H, D), torch.bfloat16)
+    k = randn(rng, (B, L, Hkv, D), torch.bfloat16)
+    v = randn(rng, (B, L, Hkv, D), torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    compare(sdpa(qt, kt, vt, True).transpose(1, 2), want, dt, "library yardstick (forward)")
-    fwd_ms = time_ms(lambda: ops.mha_forward(q, k, v, causal=True))
-    fwd_plain = time_ms(lambda: ops.mha_forward(q, k, v, causal=True, mode="reference"), iters=10)
-    fwd_lib = time_ms(lambda: sdpa(qt, kt, vt, True))
-    fwd_bound, fwd_by = bound(*fwd_costs(s["B"], s["H"], s["Hkv"], s["L"], s["L"], s["D"], dt, True))
+    fwd["flash_fwd"]["long"] = dict(
+        at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal bf16",
+        ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+        library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
+        bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, torch.bfloat16, True))[0])
 
     # decode: cycle over the 36 layers' slices of one cache as a decode step
     # does, so that each launch finds its K/V rows cold in L2
     s = SERVE_DEC
+    dt = torch.bfloat16
     cache_k = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
     cache_v = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
     qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
@@ -249,38 +354,51 @@ def phase_kernels():
         return run
 
     n = s["layers"]
-    dec_ms = time_ms(sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen)),
-                     iters=10, warmup=2) / n
-    dec_plain = time_ms(sweep(lambda i: ops.decode_forward(
-        qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n
-    dec_lib = time_ms(sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
-                                           cache_v[i, :, :clen].transpose(1, 2), False)),
-                      iters=10, warmup=2) / n
-    dec_bound, dec_by = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"], clen, dt))
+    dec_kernel = sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen))
+    dec_library = sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
+                                       cache_v[i, :, :clen].transpose(1, 2), False))
+    dec = dict(
+        ms=device_ms(dec_kernel, iters=5, warmup=1) / n,
+        wrapper_ms=time_ms(dec_kernel, iters=10, warmup=2) / n,
+        plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
+            qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n,
+        library_ms=device_ms(dec_library, iters=5, warmup=1) / n,
+        library_wrapper_ms=time_ms(dec_library, iters=10, warmup=2) / n)
+    dec["bound_ms"], dec["bound_by"] = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"],
+                                                        clen, dt))
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
+          "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,
           "tolerance": {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}})
+    serve_fwd = "B1 H16 Hkv2 L=S=512 D128 causal"
     return [
         {"name": "flash_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:110",
+         "launches": 0, "max_abs_err": worst["flash_fwd"], **fwd["flash_fwd"],
+         "cases": cases["flash_fwd"], "timed_at": serve_fwd + " bf16"},
+        {"name": "flash_fwd_f32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:110",
-         "launches": 0, "max_abs_err": worst["flash_fwd"], "ms": fwd_ms,
-         "plain_ms": fwd_plain, "bound_ms": fwd_bound, "bound_by": fwd_by,
-         "library_ms": fwd_lib, "cases": cases["flash_fwd"],
-         "timed_at": "B1 H16 Hkv2 L=S=512 D128 causal bf16"},
+         "launches": 0, "max_abs_err": worst["flash_fwd_f32"], **fwd["flash_fwd_f32"],
+         "cases": cases["flash_fwd_f32"], "timed_at": serve_fwd + " float32"},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:83",
-         "launches": 0, "max_abs_err": worst["flash_decode"], "ms": dec_ms,
-         "plain_ms": dec_plain, "bound_ms": dec_bound, "bound_by": dec_by,
-         "library_ms": dec_lib, "cases": cases["flash_decode"],
+         "launches": 0, "max_abs_err": worst["flash_decode"], **dec,
+         "cases": cases["flash_decode"],
          "timed_at": f"B4 H16 Hkv2 S_max1024 cache_len{clen} D128 bf16, cold L2"},
     ]
 
 
 def reset_counts():
-    fa.launches = 0
+    fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
     fd.launches = 0
+
+
+def read_counts():
+    return {"flash_fwd": fa.launches_sm90, "flash_fwd_f32": fa.launches_f32,
+            "flash_decode": fd.launches}
 
 
 def make_requests(cfg, n, prompt_len, max_new, seed=0):
@@ -328,18 +446,20 @@ def phase_serve(kernels):
     t0 = time.time()
     prefill_ms, decode_ms = drive(eng, reqs)
     wall = time.time() - t0
-    counts = {"flash_fwd": fa.launches, "flash_decode": fd.launches}
+    counts = read_counts()
 
     L = cfg.num_layers
-    if counts["flash_fwd"] != n_req * L:
-        raise AssertionError(f"forward launches {counts['flash_fwd']} != {n_req} x {L}")
+    if counts["flash_fwd"] != n_req * L or fa.launches != counts["flash_fwd"]:
+        raise AssertionError(f"forward launches {counts['flash_fwd']} on the sm90 route "
+                             f"({fa.launches} in all) != {n_req} x {L}")
     if counts["flash_decode"] != eng.steps * L or eng.steps == 0:
         raise AssertionError(f"decode launches {counts['flash_decode']} != {eng.steps} x {L}")
     for r in reqs:
         if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid}: bad output {r.out}")
     for kern in kernels:
-        kern["launches"] = counts[kern["name"]]
+        if kern["name"] != "flash_fwd_f32":
+            kern["launches"] = counts[kern["name"]]
     emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
           "compute_dtype": cfg.compute_dtype, "requests": n_req, "prompt_len": prompt_len,
           "slots": slots, "max_new": max_new, "max_seq": max_seq,
@@ -387,6 +507,41 @@ def phase_path():
           "greedy_tokens_equal_share": same / len(outs[None]), "tokens": len(outs[None])})
 
 
+def phase_path_f32(kernels):
+    """The model in float32: its prefills take the fp32 kernel, its logits match the plain path."""
+    cfg = dataclasses.replace(registry.get("qwen2.5-3b"), num_layers=2, compute_dtype="float32")
+    params = api.cast_params(cfg, api.init(cfg, 3, device=DEV))
+    n_req, prompt_len, max_new = 2, 256, 4
+    eng = ServeEngine(cfg, params, slots=2, max_seq=512, device=DEV)
+    reqs = make_requests(cfg, n_req, prompt_len, max_new, seed=3)
+    reset_counts()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L = cfg.num_layers
+    if counts["flash_fwd_f32"] != n_req * L or counts["flash_fwd"] != 0:
+        raise AssertionError(f"fp32 forward launches {counts} != {n_req} x {L} on the fp32 route")
+    if counts["flash_decode"] != eng.steps * L or eng.steps == 0:
+        raise AssertionError(f"fp32 decode launches {counts['flash_decode']} != {eng.steps} x {L}")
+    for kern in kernels:
+        if kern["name"] == "flash_fwd_f32":
+            kern["launches"] = counts["flash_fwd_f32"]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 256))).to(DEV)
+    logits = {}
+    with torch.no_grad():
+        for mode in (None, "reference"):
+            hidden, _ = api.prefill(cfg, params, {"tokens": toks}, max_seq=512, mode=mode)
+            logits[mode] = api.unembed(cfg, params, hidden[:, -1:]).float()
+    got, want = logits[None], logits["reference"]
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or (err > LOGITS_TOL_F32 + LOGITS_TOL_F32 * want.abs()).any():
+        raise AssertionError(f"fp32 path check: logits differ, max abs err {float(err.max()):.3e}")
+    emit({"phase": "path_f32", "layers": L, "launches": counts, "decode_steps": eng.steps,
+          "logits_tolerance": LOGITS_TOL_F32, "prefill_logits_max_abs_err": float(err.max())})
+
+
 def profiled(fn, top=8):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
@@ -394,7 +549,6 @@ def profiled(fn, top=8):
     the traced run's device time against the untraced run's wall time, because
     tracing slows the host.
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -406,16 +560,7 @@ def profiled(fn, top=8):
         fn()
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:      # host-side op rows repeat their kernels' time
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -449,7 +594,7 @@ def phase_profile():
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,serve,path")
+    ap.add_argument("--phases", default="device,build,kernels,serve,path,path_f32")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -462,10 +607,12 @@ def main(argv=None):
         phase_serve(kernels)
     if "path" in phases:
         phase_path()
+    if "path_f32" in phases:
+        phase_path_f32(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
-    complete = all(p in phases for p in ("build", "kernels", "serve", "path"))
+    complete = all(p in phases for p in ("build", "kernels", "serve", "path", "path_f32"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_fwd", "flash_decode")
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_decode")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 last_build_seconds: float = 0.0      # wall time of the most recent compile, 0 if reused

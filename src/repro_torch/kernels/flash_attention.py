@@ -1,23 +1,32 @@
-"""FlashAttention forward: wrapper of the hand-written Hopper kernel.
+"""FlashAttention forward: wrappers of the hand-written Hopper kernels.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``_flash_fwd_kernel`` / ``flash_attention``). The kernel is
-``csrc/flash_fwd.cu``: one block per (batch, head, 64-row query tile) loops
-over the key/value tiles, where the TPU grid carried ``(acc, m, l)`` across its
-innermost sequential axis. At serving shapes the byte bound and the
-tensor-core operation bound are about equal (1.4 and 1.1 microseconds a call);
-this first version computes both products with plain fp32 FMAs on shared-memory
-tiles, so it is bound by its own FMA rate far above either, and answers cost
-with tile reuse and the causal tile skip only. Tensor cores are a later version.
+(``_flash_fwd_kernel`` / ``flash_attention``). A CUDA tensor is routed by dtype:
+
+- bf16 goes to ``csrc/flash_fwd_sm90.cu``: a warp-specialised kernel in the
+  shape of ``core/kprog/fa3.py`` (a producer warpgroup keeping a ring of K/V
+  stages in flight with TMA, two consumer warpgroups of 64 query rows taking
+  turns at ``wgmma`` for Q·Kᵀ and P·V, the online softmax in registers). P goes
+  into P·V as bf16, as in FA3; the TPU kernel keeps it fp32 (the plain version's
+  ``pv_bf16=True`` mirrors the kernel). TMA reads the tensors in place, so a
+  bf16 tensor it cannot address (base not 16-byte aligned, a stride that is not
+  a multiple of 16 bytes) raises ``ValueError``: nothing falls back.
+- fp32 goes to ``csrc/flash_fwd.cu``: fp32 FMAs on shared-memory tiles, which
+  agree with an fp32 reference to 2e-5 (``wgmma`` has no full-fp32 input, and
+  TF32 would not).
+
+At serving shapes the byte bound and the bf16 tensor-core operation bound are
+about equal (1.4 and 1.1 microseconds a call).
 
 The public layout is the TPU kernel's, q ``(B, H, L, D)`` and k/v
 ``(B, Hkv, S, D)``, but the tensors may be strided views (only D has to be
-contiguous): the kernel takes element strides, so ``ops.mha_forward`` passes
+contiguous): both kernels take strides, so ``ops.mha_forward`` passes
 transposed views of the model-side ``(B, L, H, D)`` tensors and nothing is
 copied or padded.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes
-``flash_attention_plain``. ``launches`` counts kernel launches, nothing else.
+A CPU tensor takes ``flash_attention_plain``. ``launches_sm90`` and
+``launches_f32`` count the launches of each kernel, ``launches`` their sum;
+nothing else moves them.
 """
 from __future__ import annotations
 
@@ -32,16 +41,22 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0        # number of kernel launches made by ``flash_attention``
+launches = 0        # kernel launches made by ``flash_attention``, both routes
+launches_sm90 = 0   # of which bf16, csrc/flash_fwd_sm90.cu
+launches_f32 = 0    # of which fp32, csrc/flash_fwd.cu
 _fn = None
+_fn_sm90 = None
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          block_k: int = DEFAULT_BLOCK_K):
-    """Plain PyTorch version of the kernel: same arithmetic, same layout.
+                          block_k: int = DEFAULT_BLOCK_K, pv_bf16: bool = False):
+    """Plain PyTorch version of the kernels: same arithmetic, same layout.
 
     Online softmax over KV tiles of ``block_k`` with fp32 ``(acc, m, l)``, the
-    ``-1e30`` sentinel, P kept fp32 into P·V, ``acc / max(l, 1e-30)`` at the end.
+    ``-1e30`` sentinel, ``acc / max(l, 1e-30)`` at the end. P stays fp32 into
+    P·V, as in the TPU kernel and the fp32 kernel; ``pv_bf16`` rounds P and V
+    to bf16 before P·V (the row sums keep fp32 P), as the bf16 kernel does and
+    as ``repro.models.attention.flash_ref(pv_bf16=True)`` does.
     """
     B, H, L, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -64,6 +79,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         m = m_new
+        if pv_bf16:
+            p, vj = p.bfloat16().float(), vj.bfloat16().float()
         acc = acc * corr[..., None] + torch.einsum("bhgls,bhsd->bhgld", p, vj)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, L, D).to(q.dtype)
@@ -79,6 +96,31 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _entry_sm90():
+    global _fn_sm90
+    if _fn_sm90 is None:
+        fn = _build.load("flash_fwd_sm90").repro_flash_fwd_sm90
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [p, p, p, p] + [i] * 6 + [i64] * 12 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        _fn_sm90 = fn
+    return _fn_sm90
+
+
+def _tma_addressable(t) -> bool:
+    """Whether TMA can read or write ``t`` in place, as the bf16 kernel does.
+
+    The base must be 16-byte aligned, the last dim contiguous and every other
+    stride a multiple of 16 bytes (below 2**40); a dim of extent 1 is never
+    stepped along, so its stride does not matter.
+    """
+    if t.dim() == 0 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    size = t.element_size()
+    return all(n == 1 or (st > 0 and st * size % 16 == 0 and st * size < 2 ** 40)
+               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def _check(q, k, v):
@@ -104,7 +146,7 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, H, L, D); k/v: (B, Hkv, S, D) -> (B, H, L, D), strides kept."""
-    global launches
+    global launches, launches_sm90, launches_f32
     _check(q, k, v)
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("the causal mask has no query offset: it needs L == S, "
@@ -120,15 +162,31 @@ def flash_attention(q, k, v, *, causal: bool = True):
     o = torch.empty_like(q)
     if o.stride(3) != 1:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        for name, t in (("q", q), ("k", k), ("v", v), ("the output", o)):
+            if not _tma_addressable(t):
+                raise ValueError(f"{name}: the bf16 kernel reads and writes through TMA, "
+                                 "which needs a 16-byte aligned base and strides that are "
+                                 f"multiples of 16 bytes; got strides {t.stride()} at "
+                                 f"{t.data_ptr():#x}")
+    args = (B, H, Hkv, L, S, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            o.stride(0), o.stride(1), o.stride(2),
+            1.0 / math.sqrt(D), int(causal))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       _DTYPE_CODE[q.dtype], B, H, Hkv, L, S, D,
-                       q.stride(0), q.stride(1), q.stride(2),
-                       k.stride(0), k.stride(1), k.stride(2),
-                       v.stride(0), v.stride(1), v.stride(2),
-                       o.stride(0), o.stride(1), o.stride(2),
-                       1.0 / math.sqrt(D), int(causal), stream)
-    _build.check(err, "flash_fwd")
+        if sm90:
+            err = _entry_sm90()(*ptrs, *args, stream)
+        else:
+            err = _entry()(*ptrs, _DTYPE_CODE[q.dtype], *args, stream)
+    _build.check(err, "flash_fwd_sm90" if sm90 else "flash_fwd")
+    if sm90:
+        launches_sm90 += 1
+    else:
+        launches_f32 += 1
     launches += 1
     return o

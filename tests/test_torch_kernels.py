@@ -228,11 +228,24 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
         pytest.skip("needs a CUDA device and nvcc; python3 chip_smoke.py runs the same check")
     (q, k, v), _ = _inputs([(1, 8, 100, 128), (1, 2, 100, 128), (1, 2, 100, 128)], "float32", 10)
     q, k, v = q.cuda(), k.cuda(), v.cuda()
-    n0 = tfa.launches
+    n0, f0 = tfa.launches, tfa.launches_f32
     o = tfa.flash_attention(q, k, v, causal=True)
-    assert tfa.launches == n0 + 1
+    assert (tfa.launches, tfa.launches_f32) == (n0 + 1, f0 + 1)
     torch.testing.assert_close(o, tfa.flash_attention_plain(q, k, v, causal=True),
                                atol=2e-5, rtol=2e-5)
+    # bf16 goes through the TMA + wgmma kernel; P is rounded to bf16 there
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    n0, s0 = tfa.launches, tfa.launches_sm90
+    ob = tfa.flash_attention(qb, kb, vb, causal=True)
+    assert (tfa.launches, tfa.launches_sm90) == (n0 + 1, s0 + 1)
+    torch.testing.assert_close(ob, tfa.flash_attention_plain(qb, kb, vb, causal=True),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(ob, tfa.flash_attention_plain(qb, kb, vb, causal=True,
+                                                             pv_bf16=True),
+                               atol=2e-2, rtol=2e-2)
+    flat = torch.zeros(1 + qb.numel(), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="TMA"):
+        tfa.flash_attention(flat[1:].view(qb.shape), kb, vb, causal=True)
     n0 = tfd.launches
     od = tfd.flash_decode(q[:, :, 0], k, v, 77)
     assert tfd.launches == n0 + 1

@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
   device   the card (torch and nvidia-smi), torch / CUDA / nvcc versions
   build    first use of the kernels' build (one nvcc per source, in parallel)
   kernels  each hand-written kernel against its plain PyTorch version on the
-           card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu, bf16
-           at 2e-2 through flash_fwd_sm90.cu), and timed at the serving shapes
+           card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
+           flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
+           flash_decode_sm90.cu), and timed at the serving shapes
            beside its plain version, one library call (a yardstick only: the
            port never calls it) and its roofline bound. Kernel and library
            times are device times (kernel durations from torch.profiler);
@@ -81,9 +82,17 @@ DECODE_GRID = [  # B, H, Hkv, S, D, clen
     (4, 16, 2, 1024, 128, 512),    # serving shape, G = 8
     (4, 16, 2, 1024, 128, 528),
 ]
+DECODE_EXTRA = [  # bf16 only: the sm90 kernel's edges
+    (2, 32, 2, 512, 128, 333),     # G = 16, the largest group
+    (1, 8, 2, 384, 112, 200),      # head_dim 112
+    (1, 4, 2, 64, 16, 13),         # the launcher's default (reduced) width
+    (4, 16, 2, 1024, 128, 1),      # one cached row
+    (1, 16, 2, 32768, 128, 32768), # the longest context of qwen2.5-3b
+]
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
 LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
+LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
 
 
 def emit(obj):
@@ -224,24 +233,103 @@ def fwd_grid_cases():
 
 
 def check_tma_refusal(rng):
-    """A bf16 view TMA cannot address raises; it never takes another kernel."""
+    """A bf16 view TMA cannot address raises in both wrappers; it never takes another
+    kernel and moves no launch counter."""
     flat = randn(rng, (1 + 4 * 64 * 64,), torch.bfloat16)
-    q = flat[1:].view(1, 4, 64, 64)                  # base 2 bytes off a 16-byte boundary
+    view = flat[1:].view(1, 4, 64, 64)               # base 2 bytes off a 16-byte boundary
     kv = randn(rng, (1, 2, 64, 64), torch.bfloat16)
-    before = (fa.launches, fa.launches_sm90, fa.launches_f32)
-    try:
-        fa.flash_attention(q, kv, kv, causal=True)
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("flash_fwd: a bf16 view TMA cannot address did not raise")
-    if (fa.launches, fa.launches_sm90, fa.launches_f32) != before:
-        raise AssertionError("flash_fwd: a refused call moved a launch counter")
+    q = randn(rng, (1, 8, 64), torch.bfloat16)
+    for name, mod, call in (
+            ("flash_fwd", fa, lambda: fa.flash_attention(view, kv, kv, causal=True)),
+            ("flash_decode", fd, lambda: fd.flash_decode(q, view, view, 40))):
+        before = (mod.launches, mod.launches_sm90, mod.launches_f32)
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: a bf16 view TMA cannot address did not raise")
+        if (mod.launches, mod.launches_sm90, mod.launches_f32) != before:
+            raise AssertionError(f"{name}: a refused call moved a launch counter")
+
+
+def decode_grid_cases():
+    """(shape, dtype) of every decode case held against the plain version."""
+    for shape in DECODE_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            yield shape, dtype
+    for shape in DECODE_EXTRA:
+        yield shape, torch.bfloat16
+
+
+def time_decode(rng, dt):
+    """Times decode at the serving shape, cycling over the 36 layers' slices of
+    one cache as a decode step does, so that each launch finds its K/V rows
+    cold in L2; checks the first and last layer through ops (strided views)
+    and the library call. Returns (timings, worst error)."""
+    s = SERVE_DEC
+    cache_k = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
+    cache_v = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
+    qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
+    clen = s["clen"]
+    worst = 0.0
+    for layer in (0, s["layers"] - 1):
+        got = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen)
+        torch.cuda.synchronize()
+        want = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen, mode="reference")
+        worst = max(worst, compare(got, want, dt, f"flash_decode {dt} serving shape via ops, "
+                                                  f"layer {layer}"))
+    qdt = qd.transpose(1, 2)
+    compare(sdpa(qdt, cache_k[0, :, :clen].transpose(1, 2),
+                 cache_v[0, :, :clen].transpose(1, 2), False).transpose(1, 2),
+            ops.decode_forward(qd, cache_k[0], cache_v[0], clen, mode="reference"),
+            dt, f"library yardstick (decode, {dt})")
+
+    def sweep(fn):
+        def run():
+            for layer in range(s["layers"]):
+                fn(layer)
+        return run
+
+    n = s["layers"]
+    kernel = sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen))
+    library = sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
+                                   cache_v[i, :, :clen].transpose(1, 2), False))
+    dec = dict(
+        ms=device_ms(kernel, iters=5, warmup=1) / n,
+        wrapper_ms=time_ms(kernel, iters=10, warmup=2) / n,
+        plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
+            qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n,
+        library_ms=device_ms(library, iters=5, warmup=1) / n,
+        library_wrapper_ms=time_ms(library, iters=10, warmup=2) / n)
+    dec["bound_ms"], dec["bound_by"] = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"],
+                                                        clen, dt))
+    return dec, worst
+
+
+def time_long_decode(rng):
+    """The bf16 kernel at a 32k cache (134 MB of K/V, beyond L2): device time,
+    its share of the memory rate, the library call. Returns (timings, error)."""
+    s = LONG_DEC
+    dt = torch.bfloat16
+    kc = randn(rng, (s["B"], s["clen"], s["Hkv"], s["D"]), dt)
+    vc = randn(rng, (s["B"], s["clen"], s["Hkv"], s["D"]), dt)
+    qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
+    got = ops.decode_forward(qd, kc, vc, s["clen"])
+    torch.cuda.synchronize()
+    err = compare(got, ops.decode_forward(qd, kc, vc, s["clen"], mode="reference"), dt,
+                  "flash_decode long cache via ops")
+    qdt, kt, vt = qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    ms = device_ms(lambda: ops.decode_forward(qd, kc, vc, s["clen"]))
+    bound_ms = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"], s["clen"], dt))[0]
+    return dict(at="B{B} H{H} Hkv{Hkv} cache_len{clen} D{D} bf16".format(**s), ms=ms,
+                library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)), bound_ms=bound_ms,
+                share_of_3_35_tb_s=bound_ms / ms), err
 
 
 def phase_kernels():
     rng = np.random.default_rng(0)
-    names = ("flash_fwd", "flash_fwd_f32", "flash_decode")
+    names = ("flash_fwd", "flash_fwd_f32", "flash_decode", "flash_decode_f32")
     worst = dict.fromkeys(names, 0.0)
     cases = dict.fromkeys(names, 0)
     worst_pv_bf16 = 0.0       # the bf16 kernel against the plain version that rounds P as it does
@@ -263,27 +351,28 @@ def phase_kernels():
                                                           pv_bf16=True).float()).abs()
             worst_pv_bf16 = max(worst_pv_bf16, float(err.max()))
     check_tma_refusal(rng)
-    for (B, H, Hkv, S, D, clen) in DECODE_GRID:
-        for dtype in (torch.float32, torch.bfloat16):
-            q = randn(rng, (B, H, D), dtype)
-            kc = randn(rng, (B, Hkv, S, D), dtype)
-            vc = randn(rng, (B, Hkv, S, D), dtype)
-            what = f"flash_decode {(B, H, Hkv, S, D, clen)} {dtype}"
-            got = fd.flash_decode(q, kc, vc, clen)
-            torch.cuda.synchronize()
-            want = fd.flash_decode_plain(q, kc, vc, clen)
-            err = compare(got, want, dtype, what)
-            acc, m, l = fd.flash_decode(q, kc, vc, clen, return_partials=True)
-            torch.cuda.synchronize()
-            acc_w, m_w, l_w = fd.flash_decode_plain(q, kc, vc, clen, return_partials=True)
-            # partials carry no rounding to the query type: fp32 tolerance on
-            # the normalised result, for both input types
-            err = max(err, compare(acc / l[..., None], acc_w / l_w[..., None],
-                                   torch.float32, what + " partials"))
-            compare(m + torch.log(l), m_w + torch.log(l_w), torch.float32,
-                    what + " partials log-sum-exp")
-            worst["flash_decode"] = max(worst["flash_decode"], err)
-            cases["flash_decode"] += 2
+    for (B, H, Hkv, S, D, clen), dtype in decode_grid_cases():
+        name = "flash_decode" if dtype == torch.bfloat16 else "flash_decode_f32"
+        q = randn(rng, (B, H, D), dtype)
+        kc = randn(rng, (B, Hkv, S, D), dtype)
+        vc = randn(rng, (B, Hkv, S, D), dtype)
+        what = f"{name} {(B, H, Hkv, S, D, clen)} {dtype}"
+        got = fd.flash_decode(q, kc, vc, clen)
+        torch.cuda.synchronize()
+        want = fd.flash_decode_plain(q, kc, vc, clen)
+        err = compare(got, want, dtype, what)
+        acc, m, l = fd.flash_decode(q, kc, vc, clen, return_partials=True)
+        torch.cuda.synchronize()
+        acc_w, m_w, l_w = fd.flash_decode_plain(q, kc, vc, clen, return_partials=True)
+        # partials carry no rounding to the query type: fp32 tolerance on
+        # the normalised result, for both input types
+        err = max(err, compare(acc / l[..., None], acc_w / l_w[..., None],
+                               torch.float32, what + " partials"))
+        compare(m + torch.log(l), m_w + torch.log(l_w), torch.float32,
+                what + " partials log-sum-exp")
+        worst[name] = max(worst[name], err)
+        cases[name] += 2
+        del q, kc, vc, got, want, acc, m, l, acc_w, m_w, l_w
 
     # the serving shapes, in the model-side layout, through ops (strided views);
     # the fp32 kernel is timed at the same shape in fp32
@@ -326,51 +415,22 @@ def phase_kernels():
         library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
         bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, torch.bfloat16, True))[0])
 
-    # decode: cycle over the 36 layers' slices of one cache as a decode step
-    # does, so that each launch finds its K/V rows cold in L2
-    s = SERVE_DEC
-    dt = torch.bfloat16
-    cache_k = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
-    cache_v = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
-    qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
-    clen = s["clen"]
-    for layer in (0, s["layers"] - 1):
-        got = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen)
-        torch.cuda.synchronize()
-        want = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen, mode="reference")
-        dec_err = compare(got, want, dt, f"flash_decode serving shape via ops, layer {layer}")
-        worst["flash_decode"] = max(worst["flash_decode"], dec_err)
-        cases["flash_decode"] += 1
-    qdt = qd.transpose(1, 2)
-    compare(sdpa(qdt, cache_k[0, :, :clen].transpose(1, 2),
-                 cache_v[0, :, :clen].transpose(1, 2), False).transpose(1, 2),
-            ops.decode_forward(qd, cache_k[0], cache_v[0], clen, mode="reference"),
-            dt, "library yardstick (decode)")
-
-    def sweep(fn):
-        def run():
-            for layer in range(s["layers"]):
-                fn(layer)
-        return run
-
-    n = s["layers"]
-    dec_kernel = sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen))
-    dec_library = sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
-                                       cache_v[i, :, :clen].transpose(1, 2), False))
-    dec = dict(
-        ms=device_ms(dec_kernel, iters=5, warmup=1) / n,
-        wrapper_ms=time_ms(dec_kernel, iters=10, warmup=2) / n,
-        plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
-            qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n,
-        library_ms=device_ms(dec_library, iters=5, warmup=1) / n,
-        library_wrapper_ms=time_ms(dec_library, iters=10, warmup=2) / n)
-    dec["bound_ms"], dec["bound_by"] = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"],
-                                                        clen, dt))
+    # decode at the serving shape in both types, and the bf16 kernel at a long cache
+    dec = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "flash_decode" if dt == torch.bfloat16 else "flash_decode_f32"
+        dec[name], err = time_decode(rng, dt)
+        worst[name] = max(worst[name], err)
+        cases[name] += 2
+    dec["flash_decode"]["long"], err = time_long_decode(rng)
+    worst["flash_decode"] = max(worst["flash_decode"], err)
+    cases["flash_decode"] += 1
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,
           "tolerance": {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}})
     serve_fwd = "B1 H16 Hkv2 L=S=512 D128 causal"
+    serve_dec = "B{B} H{H} Hkv{Hkv} S_max{S_max} cache_len{clen} D{D}".format(**SERVE_DEC)
     return [
         {"name": "flash_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
@@ -383,22 +443,26 @@ def phase_kernels():
          "launches": 0, "max_abs_err": worst["flash_fwd_f32"], **fwd["flash_fwd_f32"],
          "cases": cases["flash_fwd_f32"], "timed_at": serve_fwd + " float32"},
         {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode_sm90.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:83",
+         "launches": 0, "max_abs_err": worst["flash_decode"], **dec["flash_decode"],
+         "cases": cases["flash_decode"], "timed_at": serve_dec + " bf16, cold L2"},
+        {"name": "flash_decode_f32", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:83",
-         "launches": 0, "max_abs_err": worst["flash_decode"], **dec,
-         "cases": cases["flash_decode"],
-         "timed_at": f"B4 H16 Hkv2 S_max1024 cache_len{clen} D128 bf16, cold L2"},
+         "launches": 0, "max_abs_err": worst["flash_decode_f32"], **dec["flash_decode_f32"],
+         "cases": cases["flash_decode_f32"], "timed_at": serve_dec + " float32, cold L2"},
     ]
 
 
 def reset_counts():
     fa.launches = fa.launches_sm90 = fa.launches_f32 = 0
-    fd.launches = 0
+    fd.launches = fd.launches_sm90 = fd.launches_f32 = 0
 
 
 def read_counts():
     return {"flash_fwd": fa.launches_sm90, "flash_fwd_f32": fa.launches_f32,
-            "flash_decode": fd.launches}
+            "flash_decode": fd.launches_sm90, "flash_decode_f32": fd.launches_f32}
 
 
 def make_requests(cfg, n, prompt_len, max_new, seed=0):
@@ -452,13 +516,15 @@ def phase_serve(kernels):
     if counts["flash_fwd"] != n_req * L or fa.launches != counts["flash_fwd"]:
         raise AssertionError(f"forward launches {counts['flash_fwd']} on the sm90 route "
                              f"({fa.launches} in all) != {n_req} x {L}")
-    if counts["flash_decode"] != eng.steps * L or eng.steps == 0:
-        raise AssertionError(f"decode launches {counts['flash_decode']} != {eng.steps} x {L}")
+    if (counts["flash_decode"] != eng.steps * L or eng.steps == 0
+            or fd.launches != counts["flash_decode"]):
+        raise AssertionError(f"decode launches {counts['flash_decode']} on the sm90 route "
+                             f"({fd.launches} in all) != {eng.steps} x {L}")
     for r in reqs:
         if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid}: bad output {r.out}")
     for kern in kernels:
-        if kern["name"] != "flash_fwd_f32":
+        if kern["name"] in ("flash_fwd", "flash_decode"):
             kern["launches"] = counts[kern["name"]]
     emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
           "compute_dtype": cfg.compute_dtype, "requests": n_req, "prompt_len": prompt_len,
@@ -523,11 +589,13 @@ def phase_path_f32(kernels):
     L = cfg.num_layers
     if counts["flash_fwd_f32"] != n_req * L or counts["flash_fwd"] != 0:
         raise AssertionError(f"fp32 forward launches {counts} != {n_req} x {L} on the fp32 route")
-    if counts["flash_decode"] != eng.steps * L or eng.steps == 0:
-        raise AssertionError(f"fp32 decode launches {counts['flash_decode']} != {eng.steps} x {L}")
+    if (counts["flash_decode_f32"] != eng.steps * L or eng.steps == 0
+            or counts["flash_decode"] != 0):
+        raise AssertionError(f"fp32 decode launches {counts} != {eng.steps} x {L} "
+                             "on the fp32 route")
     for kern in kernels:
-        if kern["name"] == "flash_fwd_f32":
-            kern["launches"] = counts["flash_fwd_f32"]
+        if kern["name"] in ("flash_fwd_f32", "flash_decode_f32"):
+            kern["launches"] = counts[kern["name"]]
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 256))).to(DEV)
     logits = {}
     with torch.no_grad():
@@ -542,7 +610,7 @@ def phase_path_f32(kernels):
           "logits_tolerance": LOGITS_TOL_F32, "prefill_logits_max_abs_err": float(err.max())})
 
 
-def profiled(fn, top=8):
+def profiled(fn, top=12):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
     ``fn`` is run twice and must do the same work each time. The idle share sets

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_decode")
+SOURCES = ("flash_fwd", "flash_fwd_sm90", "flash_decode", "flash_decode_sm90")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 last_build_seconds: float = 0.0      # wall time of the most recent compile, 0 if reused
@@ -118,6 +118,23 @@ def on_device(device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def tma_addressable(t) -> bool:
+    """Whether TMA can read or write ``t`` in place, as the bf16 kernels do.
+
+    The base must be 16-byte aligned, the last dim contiguous and every other
+    stride a multiple of 16 bytes (below 2**40); a dim of extent 1 is never
+    stepped along, so its stride does not matter.
+    """
+    st = t.stride()
+    if not st or st[-1] != 1 or t.data_ptr() % 16:
+        return False
+    size = t.element_size()
+    for n, step in zip(t.shape[:-1], st[:-1]):
+        if n != 1 and (step <= 0 or step * size % 16 or step * size >= 2 ** 40):
+            return False
+    return True
 
 
 def check(err: int, what: str) -> None:

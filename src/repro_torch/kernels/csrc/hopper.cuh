@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tensor copies, named barriers, wgmma descriptors and the wgmma shapes the
-// attention kernels use, and the driver entry point that encodes tensor maps.
+// tensor copies, cp.async copies tracked by mbarriers, named barriers, cluster
+// barriers and distributed shared memory, wgmma descriptors and the wgmma
+// shapes the attention kernels use, and the run-time lookup of the
+// tensor-map encoder.
 //
 // The tensor-map encoder cuTensorMapEncodeTiled lives in the driver library.
 // It is looked up at run time through the runtime's cudaGetDriverEntryPoint,
@@ -128,6 +130,66 @@ __device__ __forceinline__ void tma_store_drain() {
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies through the load/store units, tracked by an mbarrier
+
+// Copies 16 bytes from device memory into shared memory (both 16-byte
+// aligned); only the first `src_bytes` (0 or 16) are read, the rest is zero.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+// This thread's arrival on `bar`, made when all its cp.async copies so far have
+// landed (counts as one of the arrivals the barrier was initialised with).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: rank, the cluster-wide barrier, distributed shared memory
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves: every thread of every CTA arrives, then
+// waits. cluster_arrive releases this thread's shared-memory writes (local
+// and remote) to the threads that return from the matching cluster_wait;
+// cluster_arrive_relaxed orders nothing (it only says that the CTA runs).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in the cluster's CTA `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t smem_addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f32x4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import tma_addressable as _tma_addressable
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
@@ -107,20 +108,6 @@ def _entry_sm90():
         fn.restype = ctypes.c_int
         _fn_sm90 = fn
     return _fn_sm90
-
-
-def _tma_addressable(t) -> bool:
-    """Whether TMA can read or write ``t`` in place, as the bf16 kernel does.
-
-    The base must be 16-byte aligned, the last dim contiguous and every other
-    stride a multiple of 16 bytes (below 2**40); a dim of extent 1 is never
-    stepped along, so its stride does not matter.
-    """
-    if t.dim() == 0 or t.stride(-1) != 1 or t.data_ptr() % 16:
-        return False
-    size = t.element_size()
-    return all(n == 1 or (st > 0 and st * size % 16 == 0 and st * size < 2 ** 40)
-               for n, st in zip(t.shape[:-1], t.stride()[:-1]))
 
 
 def _check(q, k, v):

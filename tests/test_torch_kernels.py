@@ -246,8 +246,18 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
     flat = torch.zeros(1 + qb.numel(), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="TMA"):
         tfa.flash_attention(flat[1:].view(qb.shape), kb, vb, causal=True)
-    n0 = tfd.launches
+    n0, f0 = tfd.launches, tfd.launches_f32
     od = tfd.flash_decode(q[:, :, 0], k, v, 77)
-    assert tfd.launches == n0 + 1
+    assert (tfd.launches, tfd.launches_f32) == (n0 + 1, f0 + 1)
     torch.testing.assert_close(od, tfd.flash_decode_plain(q[:, :, 0], k, v, 77),
                                atol=2e-5, rtol=2e-5)
+    # bf16 decode goes through the sm90 kernel (cp.async ring, mma.sync, cluster merge)
+    n0, s0 = tfd.launches, tfd.launches_sm90
+    odb = tfd.flash_decode(qb[:, :, 0], kb, vb, 77)
+    assert (tfd.launches, tfd.launches_sm90) == (n0 + 1, s0 + 1)
+    torch.testing.assert_close(odb, tfd.flash_decode_plain(qb[:, :, 0], kb, vb, 77),
+                               atol=2e-2, rtol=2e-2)
+    flat = torch.zeros(1 + kb.numel(), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="TMA"):
+        tfd.flash_decode(qb[:, :, 0], flat[1:].view(kb.shape), vb, 77)
+    assert tfd.launches == n0 + 1

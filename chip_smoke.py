@@ -10,8 +10,8 @@ Phases, each printing one JSON line:
   kernels  each hand-written kernel against its plain PyTorch version on the
            card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
            flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
-           flash_decode_sm90.cu), and timed at the serving shapes
-           beside its plain version, one library call (a yardstick only: the
+           flash_decode_sm90.cu), and timed at the serving shapes (both
+           forwards also at a long context) beside its plain version, one library call (a yardstick only: the
            port never calls it) and its roofline bound. Kernel and library
            times are device times (kernel durations from torch.profiler);
            wrapper_ms is the host-clocked time of a call through the wrapper
@@ -69,10 +69,15 @@ FWD_GRID = [  # B, H, Hkv, L, S, D
     (1, 2, 2, 192, 192, 112),      # head_dim 112
     (1, 16, 2, 512, 512, 128),     # serving shape, G = 8
 ]
-FWD_EXTRA = [  # bf16 only, causal: deep K/V rings, many diagonal tiles
+FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 16, 2, 1024, 1024, 64),
     (2, 32, 8, 2048, 2048, 128),
     (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
+]
+FWD_ODD = [  # fp32 only, causal: the pairing of 32-row tiles in flash_fwd.cu
+    (1, 4, 1, 80, 80, 112),        # 3 row tiles: the middle one alone, ragged rows
+    (1, 2, 2, 288, 288, 64),       # 9 row tiles
+    (2, 4, 2, 300, 300, 128),      # 10 row tiles, ragged rows
 ]
 DECODE_GRID = [  # B, H, Hkv, S, D, clen
     (2, 8, 2, 512, 64, 300),
@@ -229,26 +234,34 @@ def fwd_grid_cases():
             for dtype in (torch.float32, torch.bfloat16):
                 yield shape, causal, dtype
     for shape in FWD_EXTRA:
-        yield shape, True, torch.bfloat16
+        for dtype in (torch.float32, torch.bfloat16):
+            yield shape, True, dtype
+    for shape in FWD_ODD:
+        yield shape, True, torch.float32
 
 
 def check_tma_refusal(rng):
-    """A bf16 view TMA cannot address raises in both wrappers; it never takes another
-    kernel and moves no launch counter."""
+    """A bf16 view TMA cannot address raises in both wrappers, and so does an fp32
+    view the forward's 16-byte copies cannot address; none takes another kernel or
+    moves a launch counter."""
     flat = randn(rng, (1 + 4 * 64 * 64,), torch.bfloat16)
     view = flat[1:].view(1, 4, 64, 64)               # base 2 bytes off a 16-byte boundary
     kv = randn(rng, (1, 2, 64, 64), torch.bfloat16)
     q = randn(rng, (1, 8, 64), torch.bfloat16)
+    flat32 = randn(rng, (1 + 4 * 64 * 64,), torch.float32)
+    view32 = flat32[1:].view(1, 4, 64, 64)           # base 4 bytes off a 16-byte boundary
+    kv32 = randn(rng, (1, 2, 64, 64), torch.float32)
     for name, mod, call in (
-            ("flash_fwd", fa, lambda: fa.flash_attention(view, kv, kv, causal=True)),
-            ("flash_decode", fd, lambda: fd.flash_decode(q, view, view, 40))):
+            ("flash_fwd bf16", fa, lambda: fa.flash_attention(view, kv, kv, causal=True)),
+            ("flash_fwd fp32", fa, lambda: fa.flash_attention(view32, kv32, kv32, causal=True)),
+            ("flash_decode bf16", fd, lambda: fd.flash_decode(q, view, view, 40))):
         before = (mod.launches, mod.launches_sm90, mod.launches_f32)
         try:
             call()
         except ValueError:
             pass
         else:
-            raise AssertionError(f"{name}: a bf16 view TMA cannot address did not raise")
+            raise AssertionError(f"{name}: a view the kernel cannot address did not raise")
         if (mod.launches, mod.launches_sm90, mod.launches_f32) != before:
             raise AssertionError(f"{name}: a refused call moved a launch counter")
 
@@ -403,17 +416,27 @@ def phase_kernels():
         fwd[name]["bound_ms"], fwd[name]["bound_by"] = bound(
             *fwd_costs(s["B"], s["H"], s["Hkv"], s["L"], s["L"], s["D"], dt, True))
 
-    # the bf16 kernel at a long context as well (more K/V tiles than ring stages)
+    # both kernels at a long context as well (more K/V tiles than ring stages)
     B, H, Hkv, L, D = LONG_FWD
-    q = randn(rng, (B, L, H, D), torch.bfloat16)
-    k = randn(rng, (B, L, Hkv, D), torch.bfloat16)
-    v = randn(rng, (B, L, Hkv, D), torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fwd["flash_fwd"]["long"] = dict(
-        at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal bf16",
-        ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
-        library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
-        bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, torch.bfloat16, True))[0])
+    for dt in (torch.bfloat16, torch.float32):
+        name = "flash_fwd" if dt == torch.bfloat16 else "flash_fwd_f32"
+        q = randn(rng, (B, L, H, D), dt)
+        k = randn(rng, (B, L, Hkv, D), dt)
+        v = randn(rng, (B, L, Hkv, D), dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fwd[name]["long"] = dict(
+            at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal {str(dt)[6:]}",
+            ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+            library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
+            bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
+        del q, k, v, qt, kt, vt
+    # the fp32 kernel's blocks and their balance (K/V tile steps of the heaviest
+    # block over the mean), at the serving shape and the long one
+    for at, (n_heads, batch, seq) in (("serving", (s["H"], s["B"], s["L"])),
+                                      ("long", (H, B, L))):
+        steps = fa.f32_schedule(seq, seq, True)
+        fwd["flash_fwd_f32"][f"blocks_{at}"] = len(steps) * n_heads * batch
+        fwd["flash_fwd_f32"][f"work_max_over_mean_{at}"] = max(steps) / (sum(steps) / len(steps))
 
     # decode at the serving shape in both types, and the bf16 kernel at a long cache
     dec = {}
@@ -661,6 +684,9 @@ def phase_profile():
 
 
 def main(argv=None):
+    # the plain versions and the library call run in full fp32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,serve,path,path_f32")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")

@@ -136,11 +136,22 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
 // cp.async: 16-byte copies through the load/store units, tracked by an mbarrier
 
 // Copies 16 bytes from device memory into shared memory (both 16-byte
-// aligned); only the first `src_bytes` (0 or 16) are read, the rest is zero.
+// aligned); only the first `src_bytes` (0 to 16) are read, the rest is zero.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, uint32_t src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
                : "memory");
+}
+
+// Closes the group of this thread's cp.async copies issued so far.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // This thread's arrival on `bar`, made when all its cp.async copies so far have

@@ -11,12 +11,16 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
   ``pv_bf16=True`` mirrors the kernel). TMA reads the tensors in place, so a
   bf16 tensor it cannot address (base not 16-byte aligned, a stride that is not
   a multiple of 16 bytes) raises ``ValueError``: nothing falls back.
-- fp32 goes to ``csrc/flash_fwd.cu``: fp32 FMAs on shared-memory tiles, which
-  agree with an fp32 reference to 2e-5 (``wgmma`` has no full-fp32 input, and
-  TF32 would not).
+- fp32 goes to ``csrc/flash_fwd.cu``: fp32 FMAs (``wgmma`` has no fp32 input,
+  and TF32 would not agree with an fp32 reference to 2e-5), register-tiled, a
+  2-stage K/V ring filled by 16-byte ``cp.async`` copies, and causal row tiles
+  paired so that every block of a head walks as many K/V tiles
+  (``f32_schedule``). The copies need the same addressability as TMA, so an
+  fp32 tensor that fails it raises ``ValueError`` too.
 
-At serving shapes the byte bound and the bf16 tensor-core operation bound are
-about equal (1.4 and 1.1 microseconds a call).
+At serving shapes the bf16 call's byte and tensor-core bounds are about equal
+(1.4 and 1.1 microseconds); the fp32 call is bound by the fp32 FMA rate
+(16 microseconds).
 
 The public layout is the TPU kernel's, q ``(B, H, L, D)`` and k/v
 ``(B, Hkv, S, D)``, but the tensors may be strided views (only D has to be
@@ -40,7 +44,9 @@ from repro_torch.kernels._build import tma_addressable as _tma_addressable
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+F32_BLOCK_M = 32    # query rows of a row tile of csrc/flash_fwd.cu
+F32_BLOCK_N = 64    # key/value rows of its K/V tiles
 
 launches = 0        # kernel launches made by ``flash_attention``, both routes
 launches_sm90 = 0   # of which bf16, csrc/flash_fwd_sm90.cu
@@ -87,13 +93,32 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return o.reshape(B, H, L, D).to(q.dtype)
 
 
+def f32_schedule(L: int, S: int, causal: bool):
+    """K/V tile steps of each block of one (batch, head) in ``csrc/flash_fwd.cu``.
+
+    Row tiles have ``F32_BLOCK_M`` rows and walk K/V tiles of ``F32_BLOCK_N``
+    rows, causal ones up to their diagonal. Causal blocks own row tiles ``i``
+    and ``n - 1 - i`` (the middle one alone when ``n`` is odd); non-causal
+    blocks own one. Returns one entry a block, as the kernel's grid does.
+    """
+    n_rt = -(-L // F32_BLOCK_M)
+    n_kt = -(-S // F32_BLOCK_N)
+    if not causal:
+        return [n_kt] * n_rt
+
+    def steps(t):
+        return (min(L, (t + 1) * F32_BLOCK_M) - 1) // F32_BLOCK_N + 1
+
+    return [steps(i) + (steps(n_rt - 1 - i) if n_rt - 1 - i != i else 0)
+            for i in range((n_rt + 1) // 2)]
+
+
 def _entry():
     global _fn
     if _fn is None:
         fn = _build.load("flash_fwd").repro_flash_fwd
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p, p, p, p, i] + [i] * 6 + [i64] * 12
-                       + [ctypes.c_float, i, p])
+        fn.argtypes = [p, p, p, p] + [i] * 6 + [i64] * 12 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -119,7 +144,7 @@ def _check(q, k, v):
                          f"v {tuple(v.shape)}")
     if H % k.shape[1] != 0:
         raise ValueError(f"{H} query heads do not group over {k.shape[1]} KV heads")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, all "
                         f"alike; got {q.dtype}, {k.dtype}, {v.dtype}")
     if D > 128:
@@ -150,13 +175,13 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if o.stride(3) != 1:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     sm90 = q.dtype == torch.bfloat16
-    if sm90:
-        for name, t in (("q", q), ("k", k), ("v", v), ("the output", o)):
-            if not _tma_addressable(t):
-                raise ValueError(f"{name}: the bf16 kernel reads and writes through TMA, "
-                                 "which needs a 16-byte aligned base and strides that are "
-                                 f"multiples of 16 bytes; got strides {t.stride()} at "
-                                 f"{t.data_ptr():#x}")
+    how = ("the bf16 kernel reads and writes through TMA" if sm90 else
+           "the fp32 kernel moves 16-byte chunks (cp.async copies, float4 stores)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("the output", o)):
+        if not _tma_addressable(t):
+            raise ValueError(f"{name}: {how}, which needs a 16-byte aligned base and "
+                             f"strides that are multiples of 16 bytes; got strides "
+                             f"{t.stride()} at {t.data_ptr():#x}")
     args = (B, H, Hkv, L, S, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -166,10 +191,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if sm90:
-            err = _entry_sm90()(*ptrs, *args, stream)
-        else:
-            err = _entry()(*ptrs, _DTYPE_CODE[q.dtype], *args, stream)
+        err = (_entry_sm90() if sm90 else _entry())(*ptrs, *args, stream)
     _build.check(err, "flash_fwd_sm90" if sm90 else "flash_fwd")
     if sm90:
         launches_sm90 += 1

@@ -430,13 +430,6 @@ def phase_kernels():
             library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
             bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
         del q, k, v, qt, kt, vt
-    # the fp32 kernel's blocks and their balance (K/V tile steps of the heaviest
-    # block over the mean), at the serving shape and the long one
-    for at, (n_heads, batch, seq) in (("serving", (s["H"], s["B"], s["L"])),
-                                      ("long", (H, B, L))):
-        steps = fa.f32_schedule(seq, seq, True)
-        fwd["flash_fwd_f32"][f"blocks_{at}"] = len(steps) * n_heads * batch
-        fwd["flash_fwd_f32"][f"work_max_over_mean_{at}"] = max(steps) / (sum(steps) / len(steps))
 
     # decode at the serving shape in both types, and the bf16 kernel at a long cache
     dec = {}

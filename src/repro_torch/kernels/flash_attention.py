@@ -14,9 +14,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 - fp32 goes to ``csrc/flash_fwd.cu``: fp32 FMAs (``wgmma`` has no fp32 input,
   and TF32 would not agree with an fp32 reference to 2e-5), register-tiled, a
   2-stage K/V ring filled by 16-byte ``cp.async`` copies, and causal row tiles
-  paired so that every block of a head walks as many K/V tiles
-  (``f32_schedule``). The copies need the same addressability as TMA, so an
-  fp32 tensor that fails it raises ``ValueError`` too.
+  paired so that every block of a head walks as many K/V tiles (the source's
+  header states the schedule). The copies need the same addressability as
+  TMA, so an fp32 tensor that fails it raises ``ValueError`` too.
 
 At serving shapes the bf16 call's byte and tensor-core bounds are about equal
 (1.4 and 1.1 microseconds); the fp32 call is bound by the fp32 FMA rate
@@ -45,8 +45,6 @@ from repro_torch.kernels._build import tma_addressable as _tma_addressable
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-F32_BLOCK_M = 32    # query rows of a row tile of csrc/flash_fwd.cu
-F32_BLOCK_N = 64    # key/value rows of its K/V tiles
 
 launches = 0        # kernel launches made by ``flash_attention``, both routes
 launches_sm90 = 0   # of which bf16, csrc/flash_fwd_sm90.cu
@@ -91,26 +89,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         acc = acc * corr[..., None] + torch.einsum("bhgls,bhsd->bhgld", p, vj)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, L, D).to(q.dtype)
-
-
-def f32_schedule(L: int, S: int, causal: bool):
-    """K/V tile steps of each block of one (batch, head) in ``csrc/flash_fwd.cu``.
-
-    Row tiles have ``F32_BLOCK_M`` rows and walk K/V tiles of ``F32_BLOCK_N``
-    rows, causal ones up to their diagonal. Causal blocks own row tiles ``i``
-    and ``n - 1 - i`` (the middle one alone when ``n`` is odd); non-causal
-    blocks own one. Returns one entry a block, as the kernel's grid does.
-    """
-    n_rt = -(-L // F32_BLOCK_M)
-    n_kt = -(-S // F32_BLOCK_N)
-    if not causal:
-        return [n_kt] * n_rt
-
-    def steps(t):
-        return (min(L, (t + 1) * F32_BLOCK_M) - 1) // F32_BLOCK_N + 1
-
-    return [steps(i) + (steps(n_rt - 1 - i) if n_rt - 1 - i != i else 0)
-            for i in range((n_rt + 1) // 2)]
 
 
 def _entry():

@@ -46,6 +46,9 @@ FWD_GRID = [
     (2, 4, 4, 100, 100, 64),      # non-multiple of block
     (1, 4, 1, 64, 384, 128),      # cross (L != S)
     (1, 2, 2, 192, 192, 112),     # head_dim 112
+    (1, 4, 1, 80, 80, 112),       # fp32 kernel: 3 row tiles of 32, the middle one alone
+    (1, 2, 1, 300, 300, 128),     # fp32 kernel: 10 row tiles, ragged rows
+    (1, 4, 2, 12, 12, 16),        # the launcher's reduced width
 ]
 
 
@@ -233,6 +236,28 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
     assert (tfa.launches, tfa.launches_f32) == (n0 + 1, f0 + 1)
     torch.testing.assert_close(o, tfa.flash_attention_plain(q, k, v, causal=True),
                                atol=2e-5, rtol=2e-5)
+    # the fp32 kernel's row-tile pairing, ragged rows, L != S and D 112 / 16, in the
+    # model-side layout (strided views)
+    for B, H, Hkv, L, S, D, causal in [(2, 4, 2, 300, 300, 128, True),
+                                       (1, 4, 1, 80, 80, 112, True),
+                                       (1, 4, 1, 64, 384, 128, False),
+                                       (1, 2, 2, 192, 192, 112, False),
+                                       (1, 4, 2, 12, 12, 16, True)]:
+        (q32, k32, v32), _ = _inputs([(B, L, H, D), (B, S, Hkv, D), (B, S, Hkv, D)],
+                                     "float32", 11)
+        q32, k32, v32 = q32.cuda(), k32.cuda(), v32.cuda()
+        n0, f0 = tfa.launches, tfa.launches_f32
+        o32 = tops.mha_forward(q32, k32, v32, causal=causal)
+        assert (tfa.launches, tfa.launches_f32) == (n0 + 1, f0 + 1)
+        torch.testing.assert_close(
+            o32, tops.mha_forward(q32, k32, v32, causal=causal, mode="reference"),
+            atol=2e-5, rtol=2e-5)
+    # an fp32 view 4 bytes off a 16-byte boundary: the copies cannot address it
+    flat = torch.zeros(1 + q.numel(), device="cuda")
+    counters = (tfa.launches, tfa.launches_f32, tfa.launches_sm90)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(flat[1:].view(q.shape), k, v, causal=True)
+    assert (tfa.launches, tfa.launches_f32, tfa.launches_sm90) == counters
     # bf16 goes through the TMA + wgmma kernel; P is rounded to bf16 there
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     n0, s0 = tfa.launches, tfa.launches_sm90
@@ -262,36 +287,3 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
         tfd.flash_decode(qb[:, :, 0], flat[1:].view(kb.shape), vb, 77)
     assert tfd.launches == n0 + 1
 
-
-@gpu
-@pytest.mark.parametrize("B,H,Hkv,L,S,D,causal", [
-    (1, 8, 2, 100, 100, 128, True),     # ragged rows: 4 row tiles of 32
-    (2, 4, 2, 300, 300, 128, True),     # ragged rows: 10 row tiles
-    (1, 4, 1, 80, 80, 112, True),       # 3 row tiles: the middle one alone; D 112
-    (1, 4, 1, 64, 384, 128, False),     # L != S
-    (1, 2, 2, 192, 192, 112, False),    # D 112
-    (1, 4, 2, 12, 12, 16, True),        # D 16, one row tile
-])
-def test_fp32_kernel_matches_plain_version_on_the_card(B, H, Hkv, L, S, D, causal):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc; python3 chip_smoke.py runs the same check")
-    (q, k, v), _ = _inputs([(B, L, H, D), (B, S, Hkv, D), (B, S, Hkv, D)], "float32", 11)
-    q, k, v = q.cuda(), k.cuda(), v.cuda()
-    n0, f0 = tfa.launches, tfa.launches_f32
-    o = tops.mha_forward(q, k, v, causal=causal)          # model-side layout: strided views
-    assert (tfa.launches, tfa.launches_f32) == (n0 + 1, f0 + 1)
-    torch.testing.assert_close(o, tops.mha_forward(q, k, v, causal=causal, mode="reference"),
-                               atol=2e-5, rtol=2e-5)
-
-
-@gpu
-def test_fp32_kernel_refuses_a_view_its_copies_cannot_address():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc; python3 chip_smoke.py runs the same check")
-    (q, k, v), _ = _inputs([(1, 4, 64, 64), (1, 2, 64, 64), (1, 2, 64, 64)], "float32", 12)
-    q, k, v = q.cuda(), k.cuda(), v.cuda()
-    flat = torch.zeros(1 + q.numel(), device="cuda")
-    counters = (tfa.launches, tfa.launches_f32, tfa.launches_sm90)
-    with pytest.raises(ValueError, match="16-byte"):
-        tfa.flash_attention(flat[1:].view(q.shape), k, v, causal=True)   # base 4 bytes off
-    assert (tfa.launches, tfa.launches_f32, tfa.launches_sm90) == counters

@@ -10,11 +10,12 @@ Phases, each printing one JSON line:
   kernels  each hand-written kernel against its plain PyTorch version on the
            card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
            flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
-           flash_decode_sm90.cu), and timed at the serving shapes (both
-           forwards also at a long context) beside its plain version, one library call (a yardstick only: the
-           port never calls it) and its roofline bound. Kernel and library
-           times are device times (kernel durations from torch.profiler);
-           wrapper_ms is the host-clocked time of a call through the wrapper
+           flash_decode_sm90.cu), and timed at the serving shapes and at a
+           long context beside its plain version, one library call (a
+           yardstick only: the port never calls it) and its roofline bound.
+           Kernel and library times are device times (kernel durations from
+           torch.profiler); wrapper_ms is the host-clocked time of a call
+           through the wrapper; a decode call must run one device kernel
   serve    qwen2.5-3b at full width and depth, bf16, random seeded weights:
            8 requests of 512 prompt tokens through ServeEngine (4 slots,
            16 new tokens each); asserts the kernels' launch counts
@@ -87,7 +88,7 @@ DECODE_GRID = [  # B, H, Hkv, S, D, clen
     (4, 16, 2, 1024, 128, 512),    # serving shape, G = 8
     (4, 16, 2, 1024, 128, 528),
 ]
-DECODE_EXTRA = [  # bf16 only: the sm90 kernel's edges
+DECODE_EXTRA = [  # both types: the kernels' edges
     (2, 32, 2, 512, 128, 333),     # G = 16, the largest group
     (1, 8, 2, 384, 112, 200),      # head_dim 112
     (1, 4, 2, 64, 16, 13),         # the launcher's default (reduced) width
@@ -150,13 +151,13 @@ def device_rows(prof):
     return rows
 
 
-def device_ms(fn, iters=20, warmup=3, attempts=3):
-    """Device time of one call of ``fn``: the durations of the kernels it
-    launches over ``iters`` calls (torch.profiler), summed, over ``iters``.
-    Gaps between kernels do not count, so the host's enqueue rate cannot hide
-    the kernels' own time. The profiler has been seen to return a window with
-    no kernel records: a window whose kernel count is not a whole multiple of
-    ``iters`` is taken again."""
+def device_profile(fn, iters=20, warmup=3, attempts=3):
+    """Device time of one call of ``fn`` and the device kernels it launches: the
+    durations of the kernels of ``iters`` calls (torch.profiler), summed, over
+    ``iters``, and their count over ``iters``. Gaps between kernels do not
+    count, so the host's enqueue rate cannot hide the kernels' own time. The
+    profiler has been seen to return a window with no kernel records: a window
+    whose kernel count is not a whole multiple of ``iters`` is taken again."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -169,9 +170,14 @@ def device_ms(fn, iters=20, warmup=3, attempts=3):
         rows = device_rows(prof)
         launched = sum(r[1] for r in rows)
         if launched and launched % iters == 0:
-            return sum(r[0] for r in rows) / iters
+            return sum(r[0] for r in rows) / iters, launched // iters
     raise AssertionError(f"the profiler recorded no whole window of {iters} calls "
                          f"in {attempts} attempts")
+
+
+def device_ms(fn, iters=20, warmup=3, attempts=3):
+    """Device time of one call of ``fn`` (see ``device_profile``)."""
+    return device_profile(fn, iters, warmup, attempts)[0]
 
 
 def sdpa(q, k, v, causal):
@@ -242,8 +248,8 @@ def fwd_grid_cases():
 
 def check_tma_refusal(rng):
     """A bf16 view TMA cannot address raises in both wrappers, and so does an fp32
-    view the forward's 16-byte copies cannot address; none takes another kernel or
-    moves a launch counter."""
+    view the 16-byte copies of either fp32 kernel cannot address; none takes
+    another kernel or moves a launch counter."""
     flat = randn(rng, (1 + 4 * 64 * 64,), torch.bfloat16)
     view = flat[1:].view(1, 4, 64, 64)               # base 2 bytes off a 16-byte boundary
     kv = randn(rng, (1, 2, 64, 64), torch.bfloat16)
@@ -251,10 +257,12 @@ def check_tma_refusal(rng):
     flat32 = randn(rng, (1 + 4 * 64 * 64,), torch.float32)
     view32 = flat32[1:].view(1, 4, 64, 64)           # base 4 bytes off a 16-byte boundary
     kv32 = randn(rng, (1, 2, 64, 64), torch.float32)
+    q32 = randn(rng, (1, 8, 64), torch.float32)
     for name, mod, call in (
             ("flash_fwd bf16", fa, lambda: fa.flash_attention(view, kv, kv, causal=True)),
             ("flash_fwd fp32", fa, lambda: fa.flash_attention(view32, kv32, kv32, causal=True)),
-            ("flash_decode bf16", fd, lambda: fd.flash_decode(q, view, view, 40))):
+            ("flash_decode bf16", fd, lambda: fd.flash_decode(q, view, view, 40)),
+            ("flash_decode fp32", fd, lambda: fd.flash_decode(q32, view32, view32, 40))):
         before = (mod.launches, mod.launches_sm90, mod.launches_f32)
         try:
             call()
@@ -272,7 +280,8 @@ def decode_grid_cases():
         for dtype in (torch.float32, torch.bfloat16):
             yield shape, dtype
     for shape in DECODE_EXTRA:
-        yield shape, torch.bfloat16
+        for dtype in (torch.float32, torch.bfloat16):
+            yield shape, dtype
 
 
 def time_decode(rng, dt):
@@ -308,36 +317,41 @@ def time_decode(rng, dt):
     kernel = sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen))
     library = sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
                                    cache_v[i, :, :clen].transpose(1, 2), False))
+    ms, per_sweep = device_profile(kernel, iters=5, warmup=1)
     dec = dict(
-        ms=device_ms(kernel, iters=5, warmup=1) / n,
+        ms=ms / n,
+        device_kernels_per_call=per_sweep / n,
         wrapper_ms=time_ms(kernel, iters=10, warmup=2) / n,
         plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
             qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n,
         library_ms=device_ms(library, iters=5, warmup=1) / n,
         library_wrapper_ms=time_ms(library, iters=10, warmup=2) / n)
+    if dec["device_kernels_per_call"] != 1:
+        raise AssertionError(f"flash_decode {dt}: {dec['device_kernels_per_call']} device "
+                             "kernels a call, not one")
     dec["bound_ms"], dec["bound_by"] = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"],
                                                         clen, dt))
     return dec, worst
 
 
-def time_long_decode(rng):
-    """The bf16 kernel at a 32k cache (134 MB of K/V, beyond L2): device time,
-    its share of the memory rate, the library call. Returns (timings, error)."""
+def time_long_decode(rng, dt):
+    """The decode kernel of ``dt`` at a 32k cache (K/V beyond L2: 134 MB in
+    bf16, 268 MB in fp32): device time, its share of the memory rate, the
+    library call. Returns (timings, error)."""
     s = LONG_DEC
-    dt = torch.bfloat16
     kc = randn(rng, (s["B"], s["clen"], s["Hkv"], s["D"]), dt)
     vc = randn(rng, (s["B"], s["clen"], s["Hkv"], s["D"]), dt)
     qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
     got = ops.decode_forward(qd, kc, vc, s["clen"])
     torch.cuda.synchronize()
     err = compare(got, ops.decode_forward(qd, kc, vc, s["clen"], mode="reference"), dt,
-                  "flash_decode long cache via ops")
+                  f"flash_decode {dt} long cache via ops")
     qdt, kt, vt = qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     ms = device_ms(lambda: ops.decode_forward(qd, kc, vc, s["clen"]))
     bound_ms = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"], s["clen"], dt))[0]
-    return dict(at="B{B} H{H} Hkv{Hkv} cache_len{clen} D{D} bf16".format(**s), ms=ms,
-                library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)), bound_ms=bound_ms,
-                share_of_3_35_tb_s=bound_ms / ms), err
+    return dict(at="B{B} H{H} Hkv{Hkv} cache_len{clen} D{D} ".format(**s) + str(dt)[6:],
+                ms=ms, library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)),
+                bound_ms=bound_ms, share_of_3_35_tb_s=bound_ms / ms), err
 
 
 def phase_kernels():
@@ -431,16 +445,14 @@ def phase_kernels():
             bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
         del q, k, v, qt, kt, vt
 
-    # decode at the serving shape in both types, and the bf16 kernel at a long cache
+    # decode in both types at the serving shape and at a long cache
     dec = {}
     for dt in (torch.bfloat16, torch.float32):
         name = "flash_decode" if dt == torch.bfloat16 else "flash_decode_f32"
         dec[name], err = time_decode(rng, dt)
-        worst[name] = max(worst[name], err)
-        cases[name] += 2
-    dec["flash_decode"]["long"], err = time_long_decode(rng)
-    worst["flash_decode"] = max(worst["flash_decode"], err)
-    cases["flash_decode"] += 1
+        dec[name]["long"], err_long = time_long_decode(rng, dt)
+        worst[name] = max(worst[name], err, err_long)
+        cases[name] += 3
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,

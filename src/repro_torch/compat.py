@@ -12,6 +12,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.api import resolve_device
+
 
 def _map(node, fn):
     if isinstance(node, dict):
@@ -19,9 +21,11 @@ def _map(node, fn):
     return fn(node)
 
 
-def params_from_jax(cfg, tree: Dict[str, Any], *, device="cpu"):
-    """Port-side parameters from the JAX package's tree (leaves as numpy arrays)."""
+def params_from_jax(cfg, tree: Dict[str, Any], *, device="cuda"):
+    """Port-side parameters from the JAX package's tree (leaves as numpy arrays),
+    on ``device``: the card unless the caller asks for the CPU."""
     n = cfg.num_layers
+    device = resolve_device(device)
 
     def leaf(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)

@@ -1,320 +1,498 @@
-// Split-KV flash-decode for Hopper (sm_90a), fp32 arithmetic throughout.
+// Split-KV flash-decode for Hopper (sm_90a), fp32: asynchronous copies into
+// an mbarrier-guarded ring, both products as fp32 FMAs laid out so that every
+// float read from shared memory feeds all G heads of the group, and the merge
+// of the splits in the same launch through distributed shared memory.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
-// (_decode_kernel / flash_decode): one query token per sequence against the
-// key/value cache, the G query heads of a KV head sharing every K/V row,
-// columns >= cache_len masked, unnormalised fp32 (acc, m, l) emitted.
+// (_decode_kernel / flash_decode) for fp32 inputs: one query token per
+// sequence against the key/value cache, the G query heads of a KV head
+// sharing every K/V row, columns >= cache_len masked, the -1e30 sentinel,
+// acc / max(l, 1e-30) at the end, or the merged fp32 (acc, m, l) partials
+// with m in natural-log units of the scaled scores. bf16 inputs go to
+// flash_decode_sm90.cu, whose ring, split rule and cluster merge this kernel
+// shares.
 //
-// Bound: bytes. Every K and V row in [0, cache_len) is needed exactly once and
-// there are only 2*G FLOP per byte of it, so the least time is the cache slice
-// over the memory rate. The TPU kernel walked the cache sequentially per
-// (batch, kv-head); B*Hkv blocks (8 when serving) would leave most of the 132
-// SMs without a memory request in flight, so the KV axis is split:
+// Bound: bytes. Every K and V row in [0, cache_len) is needed once and there
+// are 2 * G operations per 4-byte element of it (at the serving shape, B 4,
+// Hkv 2, cache_len 520, D 128: 4.3 MB, 1.29 us at 3.35 TB/s; at a 32k cache
+// 268 MB, 80 us). The fp32 rate is not the limit (G 8: 13 TFLOP/s at the
+// memory rate, a fifth of 67), but shared-memory reads can be, so the loops
+// are laid out for them. What the design does:
+// - one launch, no scratch: one CTA per (batch, kv-head, split), each split a
+//   balanced run of whole 16-row tiles, the split count chosen by the wrapper
+//   (num_splits_sm90: 16 splits, 128 CTAs, at the serving shape and at 32k).
+//   The splits of one (batch, kv-head) form a thread-block cluster (at most
+//   16 CTAs, the non-portable size). Column quad c belongs to CTA c % n:
+//   every CTA pushes its partial's quads, and its row max and sum, into the
+//   owners' inboxes with stores to distributed shared memory, then one
+//   cluster barrier, then each CTA merges its own columns and writes them.
+//   A single split skips the cluster altogether.
+// - enough bytes in flight: two producer warps copy each K and V tile in
+//   16-byte cp.async chunks, a warp to a 512-byte row, into a ring of RING
+//   slots with full and empty mbarriers; each producer thread's copies arrive
+//   on the tile's full barrier when they land. At the serving shape a split
+//   is 2-3 tiles and the ring holds all of them, so every load is in flight
+//   at once; at 32k the ring keeps the next four tiles in flight while the
+//   consumers work. Rows past cache_len are zero-filled and read nothing;
+//   head dims past D are neither copied nor read. 97,360 bytes of shared
+//   memory, so two CTAs fit an SM (a 16-CTA cluster then needs only 8 SMs of
+//   one GPC).
+// - fp32 FMAs fed from registers: each of the four consumer warps owns four
+//   rows of every tile, and a lane owns four head dims (a float4 column) of
+//   q and of acc for all G heads. Q K^T: the lane reads each of its rows' K
+//   float4 once (a warp reads a 512-byte row, no bank conflict) and does 4 G
+//   FMAs with it, G per float; the warp's 4 x 8 partial dots (G 8; 2 x 16 at
+//   G 16) are summed across lanes by a shuffle reduce-scatter that leaves one
+//   score a lane (31 shuffles for 32 scores). The online softmax runs one
+//   score a lane, in base 2 with log2(e) folded into the scale, the max and
+//   sum of a head over the lanes that hold it by shuffles. P V: the
+//   probabilities and the heads' corrections go through 48 floats of shared
+//   memory that the warp reads back as broadcasts; a lane reads each of its
+//   rows' V float4 once and does 4 G FMAs with it. No tensor cores: TF32
+//   would not agree with an fp32 reference to 2e-5.
+// - the four warps' states merge in shared memory when the CTA's tiles are
+//   done, into the CTA's partial, as in flash_decode_sm90.cu.
+// Where it departs from src/repro/core/kprog/decode.py (SplitKVDecode): the
+// consumers run fp32 FMAs rather than tensor-core products, and the merge is
+// inside the cluster rather than in separate reduction CTAs that read the
+// partials from device memory.
 //
-//   (a) decode_split_kernel: one block of 128 threads per (batch, kv-head,
-//       split) walks its share of [0, cache_len) in tiles of 128 rows; rows
-//       beyond cache_len are never read. Per tile: (1) thread t owns K row t and
-//       computes its score against all G query rows (q staged in shared memory
-//       as fp32, the K row read once with 16-byte loads), so each exp of the
-//       softmax is computed once, not once per lane; (2) the block reduces the
-//       tile's max and sum per query row and updates the running (m, l); (3)
-//       thread t owns head dim t of the output for all G rows and adds
-//       P[g][j] * V[j][t] over the tile's rows, V read coalesced.
-//   (b) decode_merge_kernel: one block per (batch, head) merges the splits
-//       with the log-sum-exp combine (m = max m_i, l = sum l_i e^{m_i - m},
-//       acc = sum acc_i e^{m_i - m}) and writes either acc / max(l, 1e-30) in
-//       the query's type or the merged unnormalised partials.
-//
-// Caches are addressed through element strides for batch, head and sequence
-// (head dim contiguous): one layer's (B, S_max, Hkv, D) slice is read in place.
+// The caches are addressed through element strides for batch, head and
+// sequence (head dim contiguous, D a multiple of 4, the bases 16-byte aligned
+// and the strides multiples of 4 elements, which the wrapper checks): one
+// layer's (B, S_max, Hkv, D) slice is read in place. q and the output are
+// contiguous (B, H, D).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TN = 128;                // K/V rows of a tile = threads of a split block
-constexpr int NW = TN / 32;
-constexpr int DMAX = 128;              // largest head dim
-constexpr int MAX_SPLIT = 64;
+constexpr int TN = 16;                     // cache rows of a tile
+constexpr int DP = 128;                    // head dims a tile row holds: four a lane
+constexpr int NW = 4;                      // consumer warps, TN / NW rows of each tile each
+constexpr int NP = 2;                      // producer warps
+constexpr int NTHREADS = (NW + NP) * 32;   // consumer warps 0..3, producer warps 4, 5
+constexpr int ROWS_W = TN / NW;            // rows of a tile a consumer warp owns
+constexpr int RING = 5;                    // tile slots
+constexpr int MAX_SPLIT = 16;              // CTAs of a cluster, with the non-portable size
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T> struct Chunk;    // elements of a 16-byte load
-template <> struct Chunk<float> { static constexpr int N = 4; };
-template <> struct Chunk<__nv_bfloat16> { static constexpr int N = 8; };
+// Shared memory: RING slots of a K tile then a V tile, TN rows of DP floats;
+// the barriers; each consumer warp's probabilities [32] and corrections [16];
+// each warp's row max and row sum [NW][16]; the inbox of the cluster merge,
+// which the other CTAs of the cluster write: every split's row max
+// [MAX_SPLIT][16] and row sum [MAX_SPLIT][16], then its acc over this CTA's
+// columns [n_split][16][share]. After the tile loop the ring holds each
+// warp's weighted acc [NW][16][DP].
+struct Layout {
+  static constexpr int TILE = TN * DP * 4;
+  static constexpr int SLOT = 2 * TILE;                   // K, then V
+  static constexpr int BAR_OFF = RING * SLOT;
+  static constexpr int STAGE = BAR_OFF + 2 * RING * 8;
+  static constexpr int STAGE_W = 48;                      // floats a warp
+  static constexpr int ML_W = STAGE + NW * STAGE_W * 4;
+  static constexpr int INBOX = ML_W + 2 * NW * 16 * 4;
+  // share = 4 * ceil(DP / 4 / n_split) columns, so n_split * share <= DP + 4 * (MAX_SPLIT - 1)
+  static constexpr int INBOX_FLOATS = 2 * MAX_SPLIT * 16 + 16 * (DP + 4 * (MAX_SPLIT - 1));
+  static constexpr int ALLOC = INBOX + INBOX_FLOATS * 4;
+  static_assert(NW * 16 * DP * 4 <= BAR_OFF, "the warps' acc does not fit in the ring");
+  static_assert(STAGE % 16 == 0 && ML_W % 16 == 0 && INBOX % 16 == 0,
+                "misaligned shared-memory regions");
+  static_assert(ALLOC <= 113 * 1024, "two CTAs an SM need at most 113 KB each");
+};
 
-// N elements starting at p as fp32; the first n_valid are read, the rest are 0.
-// `vec` (uniform over the launch) says that p is 16-byte aligned and n_valid == N.
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* p, float (&out)[Chunk<T>::N],
-                                           bool vec, int n_valid) {
-  constexpr int N = Chunk<T>::N;
-  if (vec) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* e = reinterpret_cast<const T*>(&raw);
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;              // normalised output, or acc when the partials are asked for
+  float* out_m;            // nullptr: normalised output
+  float* out_l;
+  int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  int G, D, clen, tiles;
+  float scale_log2;
+};
+
+__device__ __forceinline__ float4 scale4(float4 a, float s) {
+  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+}
+
+// Sums N values (a power of two, N >= 32) over the 32 lanes of a warp and
+// scatters the sums: afterwards v[i], i < N / 32, holds the warp's sum of
+// value lane * (N / 32) + i. Each halving keeps one half and sends the other
+// to the partner lane: N / 2 + N / 4 + ... + N / 32 shuffles in all.
+template <int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
-  } else {
+  for (int s = 0; s < 5; ++s) {
+    const int off = 16 >> s, half = N >> (s + 1);
+    const bool upper = lane & off;
 #pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = i < n_valid ? to_float(p[i]) : 0.f;
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
   }
 }
 
-template <typename T, int GP>
-__global__ void __launch_bounds__(TN)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, float* __restrict__ part_acc,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    int G, int D, int clen, int chunk, int vec,
-                    int64_t q_sb, int64_t q_sh,
-                    int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                    int64_t v_sb, int64_t v_sh, int64_t v_ss, float scale) {
-  constexpr int N = Chunk<T>::N;
-  __shared__ __align__(16) float q_s[GP][DMAX];   // query rows, zero beyond G and D
-  __shared__ __align__(16) float p_s[GP][TN];     // the tile's probabilities
-  __shared__ float red_max[NW][GP];
-  __shared__ float red_sum[NW][GP];
+// Four output columns of one (batch, head) row: normalised, or the partials
+// (with the row's m, in natural-log units, and l at column 0). m is in log2
+// units of the scaled scores.
+__device__ __forceinline__ void write_quad(const Params& p, int64_t row, int col, float4 a,
+                                           float m, float l) {
+  float* dst = p.out + row * p.D + col;
+  if (p.out_m != nullptr) {
+    *reinterpret_cast<float4*>(dst) = a;
+    if (col == 0) {
+      p.out_m[row] = m * LN2;
+      p.out_l[row] = l;
+    }
+  } else {
+    const float lf = fmaxf(l, L_FLOOR);
+    *reinterpret_cast<float4*>(dst) = make_float4(a.x / lf, a.y / lf, a.z / lf, a.w / lf);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// GP: heads of a group, padded (8 or 16). A step of a consumer warp is
+// RS = 32 / GP of its rows, RS x GP scores, one a lane. Up to 8 heads: two
+// CTAs an SM (at most 168 registers a thread). With 16 heads q and acc take
+// 128 registers of their own, so one CTA an SM.
+template <int GP>
+__global__ void __launch_bounds__(NTHREADS, GP == 8 ? 2 : 1)
+    flash_decode_kernel(const Params p) {
+  using Ly = Layout;
+  constexpr int RS = 32 / GP;
+  static_assert(RS * GP == 32 && ROWS_W % RS == 0, "a step is one score a lane");
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Ly::BAR_OFF);
+  uint64_t* empty = full + RING;
+
   const int split = blockIdx.x, n_split = gridDim.x;
   const int hk = blockIdx.y, Hkv = gridDim.y;
   const int b = blockIdx.z;
+  const int G = p.G, D = p.D, clen = p.clen;
+  const int H = Hkv * G;
+  // balanced runs of whole tiles; none is empty, since n_split <= tiles
+  const int t_begin = (int)((int64_t)split * p.tiles / n_split);
+  const int n_tiles = (int)((int64_t)(split + 1) * p.tiles / n_split) - t_begin;
 
-  for (int idx = tid; idx < GP * DMAX; idx += TN) {
-    const int g = idx / DMAX, d = idx % DMAX;
-    q_s[g][d] = (g < G && d < D)
-        ? to_float(q[(int64_t)b * q_sb + (int64_t)(hk * G + g) * q_sh + d]) : 0.f;
-  }
-
-  // running state: m and l are kept alike in every thread, acc[g] is the
-  // thread's head dim (tid) of query row g
-  float m[GP], l[GP], acc[GP], s[GP];
+  // the role is uniform across each warp; the shuffle tells the compiler so
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-    acc[g] = 0.f;
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], NP * 32);
+      mbar_init(&empty[s], NW);
+    }
+    fence_mbar_init();
   }
-
-  const T* kb = k + (int64_t)b * k_sb + (int64_t)hk * k_sh;
-  const T* vb = v + (int64_t)b * v_sb + (int64_t)hk * v_sh;
-  const int start = split * chunk;
-  const int end = (start + chunk < clen) ? start + chunk : clen;
   __syncthreads();
+  // peers may write this CTA's inbox once every CTA of the cluster has arrived here
+  if (n_split > 1) cluster_arrive_relaxed();
 
-  for (int t0 = start; t0 < end; t0 += TN) {
-    const int j = t0 + tid;
-    const bool valid = j < end;
+  float* m_w = reinterpret_cast<float*>(smem + Ly::ML_W);   // [NW][16] maxima, then sums
+  if (warp >= NW) {
+    // ---------------- producers: each tile in 16-byte chunks, a warp to a row ---
+    constexpr int CH = DP / 4;                            // chunks of a tile row
+    constexpr int PER = 2 * TN * CH / (NP * 32);          // chunks a thread copies a tile
+    static_assert(PER * NP * 32 == 2 * TN * CH, "the producers split a tile evenly");
+    const int pt = threadIdx.x - NW * 32;
+    const float* kp = p.k + b * p.k_sb + hk * p.k_sh;
+    const float* vp = p.v + b * p.v_sb + hk * p.v_sh;
+    const bool copies = pt % CH < D / 4;                  // head dims past D: never copied
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % RING;
+      mbar_wait(&empty[s], ((j / RING) & 1) ^ 1);
+      const int row0 = (t_begin + j) * TN;
+      uint8_t* slot = smem + s * Ly::SLOT;
+      if (copies) {
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int idx = pt + i * NP * 32;
+          const int kv = idx / (TN * CH), r = (idx / CH) % TN, c = idx % CH;
+          // rows past cache_len: read nothing, store zeros
+          const bool in = row0 + r < clen;
+          const float* src = kv ? vp + (in ? (int64_t)(row0 + r) * p.v_ss + c * 4 : 0)
+                                : kp + (in ? (int64_t)(row0 + r) * p.k_ss + c * 4 : 0);
+          cp_async_16(slot + kv * Ly::TILE + (r * DP + c * 4) * 4, src, in ? 16u : 0u);
+        }
+      }
+      cp_async_arrive(&full[s]);
+    }
+  } else {
+    // ---------------- consumers: warp w takes rows 4w .. 4w + 3 of every tile ---
+    const int col = 4 * lane;                 // this lane's four head dims
+    const bool owns = col < D;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 qr[GP], acc[GP];
+    const float* qb = p.q + ((int64_t)b * H + hk * G) * D;
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      qr[g] = (g < G && owns) ? __ldg(reinterpret_cast<const float4*>(qb + g * D + col)) : zero;
+      acc[g] = zero;
+    }
+    // this lane's score in a step: row lane / GP of the step, head lane % GP;
+    // the running max (log2 units) and sum of that head, alike in its lanes
+    const int r_l = lane / GP;
+    float m_run = NEG_INF, l_run = 0.f;
+    float* p_w = reinterpret_cast<float*>(smem + Ly::STAGE) + warp * Ly::STAGE_W;   // [RS][GP]
+    float* c_w = p_w + 32;                                                            // [GP]
 
-    // (1) scores of K row j against the G query rows
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % RING;
+      mbar_wait(&full[s], (j / RING) & 1);
+      const float* k_t = reinterpret_cast<const float*>(smem + s * Ly::SLOT) + warp * ROWS_W * DP;
+      const float* v_t = k_t + Ly::TILE / 4;
+      const int row0 = (t_begin + j) * TN + warp * ROWS_W;
 #pragma unroll
-    for (int g = 0; g < GP; ++g) s[g] = 0.f;
-    if (valid) {
-      const T* kr = kb + (int64_t)j * k_ss;
-#pragma unroll 4
-      for (int d0 = 0; d0 < D; d0 += N) {
-        float kf[N];
-        load_chunk<T>(kr + d0, kf, vec != 0, D - d0);
+      for (int st = 0; st < ROWS_W / RS; ++st) {
+        // Q K^T: partial dots over this lane's head dims, RS rows x GP heads
+        float part[32];
 #pragma unroll
-        for (int g = 0; g < GP; ++g) {
-          if (g < G) {                   // G is uniform across the block
+        for (int r = 0; r < RS; ++r) {
+          const float4 kk = owns ? *reinterpret_cast<const float4*>(k_t + (st * RS + r) * DP + col)
+                                 : zero;
 #pragma unroll
-            for (int i = 0; i < N; i += 4) {
-              const float4 qq = *reinterpret_cast<const float4*>(&q_s[g][d0 + i]);
-              s[g] = fmaf(qq.x, kf[i], s[g]);
-              s[g] = fmaf(qq.y, kf[i + 1], s[g]);
-              s[g] = fmaf(qq.z, kf[i + 2], s[g]);
-              s[g] = fmaf(qq.w, kf[i + 3], s[g]);
+          for (int g = 0; g < GP; ++g) part[r * GP + g] = dot4(qr[g], kk);
+        }
+        reduce_scatter(part, lane);           // part[0]: score (r_l, lane % GP)
+
+        // online softmax, one score a lane; a head's lanes are lane % GP + GP k
+        const bool valid = row0 + st * RS + r_l < clen;
+        const float x = part[0] * p.scale_log2;
+        float mx = valid ? x : NEG_INF;
+#pragma unroll
+        for (int off = GP; off < 32; off *= 2)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        mx = fmaxf(mx, m_run);
+        const float corr = exp2f(m_run - mx);
+        const float pr = valid ? exp2f(x - mx) : 0.f;
+        float ps = pr;
+#pragma unroll
+        for (int off = GP; off < 32; off *= 2) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+        l_run = l_run * corr + ps;
+        m_run = mx;
+        p_w[lane] = pr;
+        if (lane < GP) c_w[lane] = corr;
+        __syncwarp();
+
+        // P V: rescale, then add the step's rows; P and the corrections are broadcasts
+#pragma unroll
+        for (int g4 = 0; g4 < GP / 4; ++g4) {
+          const float4 c = reinterpret_cast<const float4*>(c_w)[g4];
+          acc[4 * g4] = scale4(acc[4 * g4], c.x);
+          acc[4 * g4 + 1] = scale4(acc[4 * g4 + 1], c.y);
+          acc[4 * g4 + 2] = scale4(acc[4 * g4 + 2], c.z);
+          acc[4 * g4 + 3] = scale4(acc[4 * g4 + 3], c.w);
+        }
+#pragma unroll
+        for (int r = 0; r < RS; ++r) {
+          const float4 vv = owns ? *reinterpret_cast<const float4*>(v_t + (st * RS + r) * DP + col)
+                                 : zero;
+#pragma unroll
+          for (int g4 = 0; g4 < GP / 4; ++g4) {
+            const float4 pp = reinterpret_cast<const float4*>(p_w + r * GP)[g4];
+            const float pg[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float4& a = acc[4 * g4 + e];
+              a.x = fmaf(pg[e], vv.x, a.x);
+              a.y = fmaf(pg[e], vv.y, a.y);
+              a.z = fmaf(pg[e], vv.z, a.z);
+              a.w = fmaf(pg[e], vv.w, a.w);
             }
           }
         }
+        __syncwarp();                          // p_w and c_w are rewritten by the next step
       }
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    // (2) tile max and sum per query row, online-softmax update
+    // a lane below GP holds head `lane`'s state
+    if (lane < GP) m_w[warp * 16 + lane] = m_run;
+    // every tile of the CTA has been consumed, so no copy is pending: the ring
+    // is free once all consumers are here
+    named_bar_sync(1, NW * 32);
+    // this warp's weighted acc, [head][DP], and weighted sums; its weight in a
+    // head against the CTA's max (a warp that saw no valid row holds m = -1e30,
+    // l = 0, acc = 0 and weighs 0)
+    float* acc_w = reinterpret_cast<float*>(smem) + warp * 16 * DP;
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
-      s[g] = valid ? s[g] * scale : NEG_INF;
-      const float mx = warp_max(s[g]);
-      if (lane == 0) red_max[warp][g] = mx;
-    }
-    __syncthreads();
-    float m_new[GP];
+      float mm = NEG_INF;
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) mx = fmaxf(mx, red_max[w][g]);
-      m_new[g] = mx;
-      // the tile holds at least one valid row, so m_new is a real score and a
-      // masked row's exp(-1e30 - m_new) is exactly 0
-      const float p = expf(s[g] - mx);
-      p_s[g][tid] = p;
-      const float ps = warp_sum(p);
-      if (lane == 0) red_sum[warp][g] = ps;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      float ps = 0.f;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) ps += red_sum[w][g];
-      const float corr = expf(m[g] - m_new[g]);
-      l[g] = l[g] * corr + ps;
-      m[g] = m_new[g];
-      acc[g] *= corr;
-    }
-
-    // (3) acc[g] += sum_j P[g][j] * V[j][tid]; P is 0 on rows beyond `end`
-    if (tid < D) {
-      const int n_rows = (end - t0 < TN) ? end - t0 : TN;
-      const T* vr = vb + (int64_t)t0 * v_ss + tid;
-#pragma unroll 2
-      for (int j4 = 0; j4 < n_rows; j4 += 4) {
-        float vv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          vv[i] = (j4 + i < n_rows) ? to_float(vr[(int64_t)(j4 + i) * v_ss]) : 0.f;
-#pragma unroll
-        for (int g = 0; g < GP; ++g) {
-          if (g < G) {
-            const float4 pp = *reinterpret_cast<const float4*>(&p_s[g][j4]);
-            acc[g] = fmaf(pp.x, vv[0], acc[g]);
-            acc[g] = fmaf(pp.y, vv[1], acc[g]);
-            acc[g] = fmaf(pp.z, vv[2], acc[g]);
-            acc[g] = fmaf(pp.w, vv[3], acc[g]);
-          }
-        }
-      }
-    }
-    __syncthreads();                     // p_s and the reductions are reused
-  }
-
-  const int64_t pbase = ((int64_t)(b * Hkv + hk) * n_split + split) * G;
-#pragma unroll
-  for (int g = 0; g < GP; ++g) {
-    if (g < G) {
-      if (tid < D) part_acc[(pbase + g) * D + tid] = acc[g];
-      if (tid == 0) {
-        part_m[pbase + g] = m[g];
-        part_l[pbase + g] = l[g];
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_m,
-                    const float* __restrict__ part_l, T* __restrict__ out,
-                    float* __restrict__ out_acc, float* __restrict__ out_m,
-                    float* __restrict__ out_l, int G, int D, int n_split, int partials) {
-  __shared__ float w[MAX_SPLIT];
-  __shared__ float s_ml[2];
-  const int h = blockIdx.x, H = gridDim.x;
-  const int b = blockIdx.y;
-  const int hk = h / G, g = h % G, Hkv = H / G;
-  const int tid = threadIdx.x;
-  const int64_t base = (int64_t)(b * Hkv + hk) * n_split;   // index of split 0
-
-  if (tid < 32) {
-    // n_split <= MAX_SPLIT = 64: two entries per lane
-    float mm = NEG_INF;
-    for (int s = tid; s < n_split; s += 32) mm = fmaxf(mm, part_m[(base + s) * G + g]);
-    mm = warp_max(mm);
-    float ll = 0.f;
-    for (int s = tid; s < n_split; s += 32) {
-      const float c = expf(part_m[(base + s) * G + g] - mm);
-      w[s] = c;
-      ll = fmaf(part_l[(base + s) * G + g], c, ll);
-    }
-    ll = warp_sum(ll);
-    if (tid == 0) {
-      s_ml[0] = mm;
-      s_ml[1] = ll;
+      for (int w = 0; w < NW; ++w) mm = fmaxf(mm, m_w[w * 16 + g]);
+      const float wgt = exp2f(m_w[warp * 16 + g] - mm);
+      if (owns) *reinterpret_cast<float4*>(acc_w + g * DP + col) = scale4(acc[g], wgt);
+      if (lane == g) m_w[NW * 16 + warp * 16 + g] = l_run * wgt;
     }
   }
   __syncthreads();
 
-  const int64_t obase = (int64_t)b * H + h;
-  for (int d = tid; d < D; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      a = fmaf(part_acc[((base + s) * G + g) * D + d], w[s], a);
-    if (partials) out_acc[obase * D + d] = a;
-    else from_float(out + obase * D + d, a / fmaxf(s_ml[1], L_FLOOR));
+  // ---------------- the CTA's partial: the sum of the warps' weighted states ----
+  const float* l_w = m_w + NW * 16;                                       // [NW][16], weighted
+  const float* acc_w = reinterpret_cast<const float*>(smem);              // [NW][16][DP]
+  const int64_t obase = (int64_t)b * H + hk * G;          // (b, first head of the group)
+  const int quads = D / 4;
+  const int share = 4 * ((quads + n_split - 1) / n_split);
+  const int rank = n_split > 1 ? (int)cluster_ctarank() : 0;
+  float* in_m = reinterpret_cast<float*>(smem + Ly::INBOX);     // [MAX_SPLIT][16]
+  float* in_l = in_m + MAX_SPLIT * 16;                          // [MAX_SPLIT][16]
+  float* in_acc = in_l + MAX_SPLIT * 16;                        // [n_split][16][share]
+  if (n_split > 1) cluster_wait();          // every CTA of the cluster runs: inboxes may be written
+  for (int idx = threadIdx.x; idx < G * quads; idx += NTHREADS) {
+    const int r = idx / quads, d4 = idx % quads;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      add4(a, *reinterpret_cast<const float4*>(&acc_w[(w * 16 + r) * DP + 4 * d4]));
+    if (n_split == 1) {
+      float mm = NEG_INF, ll = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        mm = fmaxf(mm, m_w[w * 16 + r]);
+        ll += l_w[w * 16 + r];
+      }
+      write_quad(p, obase + r, 4 * d4, a, mm, ll);
+    } else {
+      // quad d4 belongs to CTA d4 % n_split, as its (d4 / n_split)-th
+      const uint32_t dst = smem_u32(&in_acc[(rank * 16 + r) * share + 4 * (d4 / n_split)]);
+      st_cluster_f32x4(map_to_rank(dst, d4 % n_split), a);
+    }
   }
-  if (partials && tid == 0) {
-    out_m[obase] = s_ml[0];
-    out_l[obase] = s_ml[1];
+  if (n_split == 1) return;
+  for (int idx = threadIdx.x; idx < G * n_split; idx += NTHREADS) {
+    const int r = idx % G, to = idx / G;    // row r's max and sum, to every CTA of the cluster
+    float mm = NEG_INF, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      mm = fmaxf(mm, m_w[w * 16 + r]);
+      ll += l_w[w * 16 + r];
+    }
+    st_cluster_f32(map_to_rank(smem_u32(&in_m[rank * 16 + r]), to), mm);
+    st_cluster_f32(map_to_rank(smem_u32(&in_l[rank * 16 + r]), to), ll);
   }
+  cluster_arrive();                         // this CTA's pushes are released ...
+  cluster_wait();                           // ... and every peer's have landed here
+
+  // ---------------- merge of this CTA's columns: quads rank, rank + n_split, ... -
+  const int nq = (quads - rank + n_split - 1) / n_split;
+  for (int idx = threadIdx.x; idx < G * nq; idx += NTHREADS) {
+    const int r = idx / nq, k = idx % nq;
+    float mm = NEG_INF;
+    for (int s = 0; s < n_split; ++s) mm = fmaxf(mm, in_m[s * 16 + r]);
+    float ll = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n_split; ++s) {
+      const float w = exp2f(in_m[s * 16 + r] - mm);
+      ll += in_l[s * 16 + r] * w;
+      add4(a, scale4(*reinterpret_cast<const float4*>(&in_acc[(s * 16 + r) * share + 4 * k]), w));
+    }
+    write_quad(p, obase + r, 4 * (rank + k * n_split), a, mm, ll);
+  }
+  // Nothing of this CTA's shared memory is read by its peers, and every write
+  // into it landed before the barrier: it may leave without waiting.
 }
 
-template <typename T, int GP>
-int launch(const void* q, const void* k, const void* v, float* part_acc, float* part_m,
-           float* part_l, void* out, float* out_acc, float* out_m, float* out_l,
-           int B, int H, int Hkv, int D, int clen, int n_split,
-           const int64_t* st, float scale, int partials, cudaStream_t stream) {
-  const int G = H / Hkv;
-  const int chunk = (clen + n_split - 1) / n_split;
-  // 16-byte loads of K rows need every row start aligned and whole chunks
-  constexpr int N = Chunk<T>::N;
-  const bool vec = D % N == 0 && (uintptr_t)k % 16 == 0 && st[2] % N == 0 &&
-                   st[3] % N == 0 && st[4] % N == 0;
-  dim3 grid_a(n_split, Hkv, B);
-  decode_split_kernel<T, GP><<<grid_a, TN, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, part_acc, part_m, part_l, G, D, clen, chunk,
-      vec ? 1 : 0, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], scale);
-  cudaError_t err = cudaGetLastError();
+template <int GP>
+int launch(const Params& p, int B, int Hkv, int n_split, cudaStream_t stream) {
+  constexpr int bytes = Layout::ALLOC;
+  static uint64_t attr_set = 0;          // devices whose attributes are set (once each)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid_b(H, B);
-  decode_merge_kernel<T><<<grid_b, 128, 0, stream>>>(
-      part_acc, part_m, part_l, (T*)out, out_acc, out_m, out_l, G, D, n_split, partials);
+  if (dev >= 64 || !(attr_set >> dev & 1)) {
+    err = cudaFuncSetAttribute(flash_decode_kernel<GP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_decode_kernel<GP>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) attr_set |= (uint64_t)1 << dev;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;    // the splits of one (batch, kv-head)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, Hkv, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<GP>, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, float* part_acc, float* part_m,
-             float* part_l, void* out, float* out_acc, float* out_m, float* out_l,
-             int B, int H, int Hkv, int D, int clen, int n_split,
-             const int64_t* st, float scale, int partials, cudaStream_t stream) {
-#define REPRO_DECODE_ARGS q, k, v, part_acc, part_m, part_l, out, out_acc, out_m, out_l, \
-                          B, H, Hkv, D, clen, n_split, st, scale, partials, stream
-  if (H / Hkv <= 8) return launch<T, 8>(REPRO_DECODE_ARGS);
-  return launch<T, 16>(REPRO_DECODE_ARGS);
-#undef REPRO_DECODE_ARGS
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q is (B, H, D) with element strides
-// (q_sb, q_sh); caches are addressed by element strides (b, kv-head, position);
-// the head dim is contiguous everywhere. part_* are fp32 scratch of
-// B*Hkv*n_split*G*(D | 1 | 1) elements. With partials == 0, `out` (B, H, D,
-// contiguous, query type) receives the normalised result; otherwise out_acc
-// (B, H, D), out_m and out_l (B, H), all fp32, receive the merged partials.
-// clen must already be clamped to [1, S]. Returns cudaGetLastError() of the
-// launches (0 on success), -1 on a bad argument.
-extern "C" int repro_flash_decode(
-    const void* q, const void* k, const void* v,
-    void* part_acc, void* part_m, void* part_l,
-    void* out, void* out_acc, void* out_m, void* out_l, int dtype,
-    int B, int H, int Hkv, int D, int clen, int n_split,
-    int64_t q_sb, int64_t q_sh,
-    int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss,
-    float scale, int partials, void* stream) {
-  if (D < 1 || D > 128 || Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 || clen < 1 ||
-      n_split < 1 || n_split > MAX_SPLIT)
+// One call's arguments, packed by the wrapper as 19 little-endian int64s
+// (kernels/flash_decode.py: _ARGS), so that the call has one argument.
+struct DecodeArgs {
+  int64_t q, k, v, out, out_m, out_l, stream;   // addresses; out_m = 0: normalised output
+  int64_t B, H, Hkv, D, clen, n_split;
+  int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;   // element strides (batch, kv-head, position)
+};
+static_assert(sizeof(DecodeArgs) == 19 * 8, "DecodeArgs is 19 int64s");
+
+// fp32 only. q (B, H, D) contiguous; caches addressed by element strides, head
+// dim contiguous, D a multiple of 4 and at most 128, at most 16 heads a KV
+// head, the bases 16-byte aligned and every stride a multiple of 4 elements
+// (a dim of extent 1 aside), as the 16-byte copies need. With out_m == 0,
+// `out` (B, H, D, contiguous) receives the normalised result; otherwise `out`
+// (B, H, D), out_m and out_l (B, H) receive the merged partials. clen must
+// already be clamped to [1, S]; 1 <= n_split <= min(16, ceil(clen / 16)).
+// Returns cudaGetLastError() of the launch (0 on success), -1 on a bad
+// argument.
+extern "C" int repro_flash_decode(const DecodeArgs* a) {
+  if (a == nullptr) return -1;
+  const int64_t B = a->B, H = a->H, Hkv = a->Hkv, D = a->D, clen = a->clen;
+  const int64_t n_split = a->n_split;
+  if (D < 4 || D > DP || D % 4 != 0 || B < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > 16 ||
+      clen < 1 || clen >= ((int64_t)1 << 31) || n_split < 1 || n_split > MAX_SPLIT)
     return -1;
-  const int64_t st[8] = {q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  cudaStream_t cs = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, (float*)part_acc, (float*)part_m, (float*)part_l, out,
-                           (float*)out_acc, (float*)out_m, (float*)out_l,
-                           B, H, Hkv, D, clen, n_split, st, scale, partials, cs);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, (float*)part_acc, (float*)part_m, (float*)part_l, out,
-                                   (float*)out_acc, (float*)out_m, (float*)out_l,
-                                   B, H, Hkv, D, clen, n_split, st, scale, partials, cs);
-  return -1;
+  const int64_t tiles = (clen + TN - 1) / TN;
+  if (n_split > tiles) return -1;                             // an empty split
+  auto bad = [](int64_t stride, int64_t extent) { return extent > 1 && (stride * 4) % 16 != 0; };
+  if ((a->q | a->k | a->v | a->out) % 16 != 0 || bad(a->k_sb, B) || bad(a->k_sh, Hkv) ||
+      bad(a->k_ss, clen) || bad(a->v_sb, B) || bad(a->v_sh, Hkv) || bad(a->v_ss, clen))
+    return -1;
+  Params p;
+  p.q = reinterpret_cast<const float*>(a->q);
+  p.k = reinterpret_cast<const float*>(a->k);
+  p.v = reinterpret_cast<const float*>(a->v);
+  p.out = reinterpret_cast<float*>(a->out);
+  p.out_m = reinterpret_cast<float*>(a->out_m);
+  p.out_l = reinterpret_cast<float*>(a->out_l);
+  p.k_sb = a->k_sb;
+  p.k_sh = a->k_sh;
+  p.k_ss = a->k_ss;
+  p.v_sb = a->v_sb;
+  p.v_sh = a->v_sh;
+  p.v_ss = a->v_ss;
+  p.G = (int)(H / Hkv);
+  p.D = (int)D;
+  p.clen = (int)clen;
+  p.tiles = (int)tiles;
+  p.scale_log2 = LOG2E / sqrtf((float)D);
+  cudaStream_t cs = reinterpret_cast<cudaStream_t>(a->stream);
+  return p.G > 8 ? launch<16>(p, (int)B, (int)Hkv, (int)n_split, cs)
+                 : launch<8>(p, (int)B, (int)Hkv, (int)n_split, cs);
 }

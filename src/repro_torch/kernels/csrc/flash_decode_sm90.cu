@@ -516,7 +516,7 @@ int launch(const Params& p, int B, int Hkv, int n_split, cudaStream_t stream) {
 }  // namespace
 
 // One call's arguments, packed by the wrapper as 19 little-endian int64s
-// (kernels/flash_decode.py: _ARGS_SM90), so that the call has one argument.
+// (kernels/flash_decode.py: _ARGS), so that the call has one argument.
 struct DecodeArgs {
   int64_t q, k, v, out, out_m, out_l, stream;   // addresses; out_m = 0: normalised output
   int64_t B, H, Hkv, D, clen, n_split;

@@ -125,8 +125,6 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, all "
                         f"alike; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D > 128:
-        raise ValueError(f"flash_attention kernel supports head_dim <= 128, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous")
@@ -145,8 +143,21 @@ def flash_attention(q, k, v, *, causal: bool = True):
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention has no kernel for {q.device}")
+    o = _launch(q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        launches_sm90 += 1
+    else:
+        launches_f32 += 1
+    launches += 1
+    return o
+
+
+def _launch(q, k, v, causal):
+    """The CUDA route: checks what the kernels take, then launches one of them."""
     B, H, L, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
+    if D > 128:
+        raise ValueError(f"flash_attention kernel supports head_dim <= 128, got {D}")
     # same strides as q when q is a dense view, so a transposed view of a
     # (B, L, H, D) tensor gives an output that transposes back for free
     o = torch.empty_like(q)
@@ -171,9 +182,4 @@ def flash_attention(q, k, v, *, causal: bool = True):
         stream = torch.cuda.current_stream().cuda_stream
         err = (_entry_sm90() if sm90 else _entry())(*ptrs, *args, stream)
     _build.check(err, "flash_fwd_sm90" if sm90 else "flash_fwd")
-    if sm90:
-        launches_sm90 += 1
-    else:
-        launches_f32 += 1
-    launches += 1
     return o

@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_decode.py``
 and V row below ``cache_len`` is read once and little is computed on it.
 ``B * Hkv`` blocks (8 when serving) would leave most of the card's 132 SMs
 idle, so the KV axis is split over blocks that each emit an fp32
-``(acc, m, l)`` partial, merged by log-sum-exp. Only ``[0, cache_len)`` is
-read, never the rest of ``S_max``. A CUDA tensor is routed by dtype:
+``(acc, m, l)`` partial, merged by log-sum-exp inside the same launch. Only
+``[0, cache_len)`` is read, never the rest of ``S_max``. A CUDA tensor is
+routed by dtype:
 
 - bf16 goes to ``csrc/flash_decode_sm90.cu``: 16-byte asynchronous copies
   (``cp.async``) of 16-row tiles into an mbarrier-guarded ring, both products
@@ -17,8 +18,17 @@ read, never the rest of ``S_max``. A CUDA tensor is routed by dtype:
   caches in place, 16 bytes at a time, so a bf16 cache that breaks TMA's
   16-byte rule, or a head dim that is not a multiple of 8, raises
   ``ValueError``: nothing falls back.
-- fp32 goes to ``csrc/flash_decode.cu``: fp32 FMAs, a split kernel and a merge
-  kernel, splits by ``num_splits``; it agrees with fp32 to 2e-5.
+- fp32 goes to ``csrc/flash_decode.cu``: the same ring, split rule and
+  cluster merge, with both products as fp32 FMAs (TF32 would not agree with
+  fp32 to 2e-5): a lane holds four head dims of q and of the output for all
+  the group's heads, so each float read from shared memory feeds G FMAs, and
+  the partial dots are summed across lanes by shuffles. It agrees with fp32
+  to 2e-5. Its copies read 16-byte chunks too, so an fp32 cache they cannot
+  address, or a head dim that is not a multiple of 4, raises ``ValueError``.
+
+Both kernels take head_dim <= 128 and at most 16 query heads a KV head; a
+CUDA tensor past that raises ``ValueError`` before any launch, while a CPU
+tensor of any size takes the plain version, as the JAX package does.
 
 The public layout is the TPU kernel's, q ``(B, H, D)`` and caches
 ``(B, Hkv, S, D)``, but the caches may be strided views (only D has to be
@@ -42,22 +52,17 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_SPLIT = 64          # csrc/flash_decode.cu: MAX_SPLIT
-MIN_ROWS_PER_SPLIT = 64
 TARGET_BLOCKS = 264     # two blocks for each of the 132 SMs
-TILE_SM90 = 16          # csrc/flash_decode_sm90.cu: TN, rows of a tile
-MAX_SPLIT_SM90 = 16     # csrc/flash_decode_sm90.cu: MAX_SPLIT, the CTAs of a cluster
+TILE_SM90 = 16          # csrc/flash_decode{,_sm90}.cu: TN, rows of a tile
+MAX_SPLIT_SM90 = 16     # csrc/flash_decode{,_sm90}.cu: MAX_SPLIT, the CTAs of a cluster
 MIN_TILES_PER_SPLIT = 2
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS_SM90 = struct.Struct("<19q")   # csrc/flash_decode_sm90.cu: struct DecodeArgs
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGS = struct.Struct("<19q")   # csrc/flash_decode{,_sm90}.cu: struct DecodeArgs
 
 launches = 0            # kernel launches made by ``flash_decode``, both routes
 launches_sm90 = 0       # of which bf16, csrc/flash_decode_sm90.cu
 launches_f32 = 0        # of which fp32, csrc/flash_decode.cu
-_fn = None
-_fn_sm90 = None
-# (device index, stream) -> fp32 partials of the fp32 route; see _workspace
-_work: dict = {}
+_fns: dict = {}         # source name -> its C entry point
 
 
 def flash_decode_plain(q, k_cache, v_cache, cache_len: int, *,
@@ -87,22 +92,9 @@ def _clamp_len(cache_len, S: int) -> int:
     return clen
 
 
-def num_splits(clen: int, n_groups: int) -> int:
-    """How many blocks share one (batch, kv-head)'s ``[0, clen)``.
-
-    At least ``MIN_ROWS_PER_SPLIT`` rows a split, no more splits than fill the
-    card about twice over, never more than the merge kernel's ``MAX_SPLIT``.
-    """
-    by_rows = -(-clen // MIN_ROWS_PER_SPLIT)
-    by_card = max(1, -(-TARGET_BLOCKS // max(n_groups, 1)))
-    n = max(1, min(by_rows, by_card, MAX_SPLIT))
-    chunk = -(-clen // n)
-    return -(-clen // chunk)        # drop splits that would be empty
-
-
 @functools.lru_cache(maxsize=4096)
 def num_splits_sm90(clen: int, n_groups: int) -> int:
-    """How many blocks of the bf16 kernel share one (batch, kv-head)'s ``[0, clen)``.
+    """How many blocks of either kernel share one (batch, kv-head)'s ``[0, clen)``.
 
     The kernel cuts the ``ceil(clen / TILE_SM90)`` tiles into this many
     balanced runs (``split * tiles // n`` onwards), so none is empty. At least
@@ -118,46 +110,15 @@ def num_splits_sm90(clen: int, n_groups: int) -> int:
     return max(1, min(by_rows, by_card, MAX_SPLIT_SM90))
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_decode").repro_flash_decode
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = ([p] * 10 + [i] + [i] * 6 + [i64] * 8
-                       + [ctypes.c_float, i, p])
+def _entry(name: str):
+    """The C entry point of ``csrc/<name>.cu``; it takes one packed ``_ARGS``."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"repro_{name}")
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _entry_sm90():
-    global _fn_sm90
-    if _fn_sm90 is None:
-        fn = _build.load("flash_decode_sm90").repro_flash_decode_sm90
-        fn.argtypes = [ctypes.c_char_p]      # the packed _ARGS_SM90
-        fn.restype = ctypes.c_int
-        _fn_sm90 = fn
-    return _fn_sm90
-
-
-def _workspace(device, stream: int, n: int):
-    """fp32 scratch of at least ``n`` floats for the fp32 route's partials.
-
-    One buffer per (device, stream), grown when a call needs more and otherwise
-    reused without allocation. That is safe under PyTorch's stream semantics:
-    kernels on one stream run one after another, so a launch finds the
-    partials of the previous launch on its stream no longer in use; a call on
-    another stream gets a buffer of its own. A buffer replaced by a larger one
-    goes back to PyTorch's allocator, which hands it only to later work on the
-    same stream.
-    """
-    key = (device.index, stream)
-    buf = _work.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(max(n, buf.numel() if buf is not None else 0),
-                          dtype=torch.float32, device=device)
-        _work[key] = buf
-    return buf
+        _fns[name] = fn
+    return fn
 
 
 def _check(q, k_cache, v_cache):
@@ -173,14 +134,9 @@ def _check(q, k_cache, v_cache):
     if H % Hkv != 0:
         raise ValueError(f"{H} query heads do not group over {Hkv} KV heads")
     dt = q.dtype
-    if dt not in _DTYPE_CODE or k_cache.dtype != dt or v_cache.dtype != dt:
+    if dt not in _DTYPES or k_cache.dtype != dt or v_cache.dtype != dt:
         raise TypeError(f"flash_decode kernel takes float32 or bfloat16, all alike; "
                         f"got {dt}, {k_cache.dtype}, {v_cache.dtype}")
-    if D > 128:
-        raise ValueError(f"flash_decode kernel supports head_dim <= 128, got {D}")
-    if H // Hkv > 16:
-        raise ValueError(f"flash_decode kernel supports up to 16 query heads per "
-                         f"KV head, got {H // Hkv}")
     if q.stride(-1) != 1 or k_cache.stride(-1) != 1 or v_cache.stride(-1) != 1:
         raise ValueError("q, k_cache and v_cache: the head dim must be contiguous")
     dev = q.device
@@ -188,18 +144,40 @@ def _check(q, k_cache, v_cache):
         raise ValueError("q and the caches must lie on one device")
 
 
+def _check_limits(D: int, G: int) -> None:
+    """The kernels' own limits; the plain version takes any size."""
+    if D > 128:
+        raise ValueError(f"flash_decode kernel supports head_dim <= 128, got {D}")
+    if G > 16:
+        raise ValueError(f"flash_decode kernel supports up to 16 query heads per "
+                         f"KV head, got {G}")
+
+
 def _launch_sm90(q, k_cache, v_cache, clen, return_partials, stream):
+    return _launch("flash_decode_sm90", "bf16", q, k_cache, v_cache, clen,
+                   return_partials, stream)
+
+
+def _launch_f32(q, k_cache, v_cache, clen, return_partials, stream):
+    return _launch("flash_decode", "fp32", q, k_cache, v_cache, clen,
+                   return_partials, stream)
+
+
+def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream):
+    """Checks what the kernel of ``csrc/<name>.cu`` takes, then launches it once."""
     B, H, D = q.shape
-    if D % 8:
-        raise ValueError(f"the bf16 decode kernel copies rows in 16-byte chunks: head_dim "
-                         f"must be a multiple of 8, got {D}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    Hkv = k_cache.shape[1]
+    _check_limits(D, H // Hkv)
+    per_chunk = 16 // q.element_size()
+    if D % per_chunk:
+        raise ValueError(f"the {kind} decode kernel copies rows in 16-byte chunks: head_dim "
+                         f"must be a multiple of {per_chunk}, got {D}")
+    for what, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if not _build.tma_addressable(t):
-            raise ValueError(f"{name}: the bf16 decode kernel copies the cache in 16-byte "
+            raise ValueError(f"{what}: the {kind} decode kernel copies the cache in 16-byte "
                              "chunks, which needs a 16-byte aligned base and strides that "
                              "are multiples of 16 bytes (TMA's rule); got strides "
                              f"{t.stride()} at {t.data_ptr():#x}")
-    Hkv = k_cache.shape[1]
     n_split = num_splits_sm90(clen, B * Hkv)
     if not q.is_contiguous() or q.data_ptr() % 16:
         q = q.clone(memory_format=torch.contiguous_format)
@@ -212,39 +190,10 @@ def _launch_sm90(q, k_cache, v_cache, clen, return_partials, stream):
         res = torch.empty_like(q)
         outs = (res.data_ptr(), 0, 0)
     ks, vs = k_cache.stride(), v_cache.stride()
-    err = _entry_sm90()(_ARGS_SM90.pack(
+    err = _entry(name)(_ARGS.pack(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *outs, stream,
         B, H, Hkv, D, clen, n_split, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2]))
-    _build.check(err, "flash_decode_sm90")
-    return res
-
-
-def _launch_f32(q, k_cache, v_cache, clen, return_partials, stream):
-    B, H, D = q.shape
-    Hkv = k_cache.shape[1]
-    G = H // Hkv
-    n_split = num_splits(clen, B * Hkv)
-    n_part = B * Hkv * n_split * G
-    part = _workspace(q.device, stream, n_part * (D + 2))
-    part_acc = part.data_ptr()
-    part_m = part_acc + 4 * n_part * D
-    part_l = part_m + 4 * n_part
-    if return_partials:
-        acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-        ml = torch.empty((2, B, H), dtype=torch.float32, device=q.device)
-        res = (acc, ml[0], ml[1])
-        ptrs = (0, acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
-    else:
-        res = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-        ptrs = (res.data_ptr(), 0, 0, 0)
-    err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                   part_acc, part_m, part_l, *ptrs, _DTYPE_CODE[q.dtype],
-                   B, H, Hkv, D, clen, n_split,
-                   q.stride(0), q.stride(1),
-                   k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-                   v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-                   1.0 / math.sqrt(D), int(return_partials), stream)
-    _build.check(err, "flash_decode")
+    _build.check(err, name)
     return res
 
 

@@ -25,7 +25,7 @@ from test_torch_models import numpy_params
 def test_converter_round_trip(arch):
     cj, ct = jregistry.get(arch).reduced(), tregistry.get(arch).reduced()
     tree = numpy_params(cj, 0)
-    pt = compat.params_from_jax(ct, tree)
+    pt = compat.params_from_jax(ct, tree, device="cpu")
     assert len(pt["blocks"]) == ct.num_layers
     wq = np.asarray(tree["blocks"]["attn"]["wq"]["w"])
     assert wq.shape[0] == ct.num_layers
@@ -46,7 +46,7 @@ def test_jax_initialised_weights_cross_over():
     cj = dataclasses.replace(jregistry.get("qwen2.5-3b").reduced(), compute_dtype="bfloat16")
     ct = tregistry.get("qwen2.5-3b").reduced()
     pj = japi.init(cj, jax.random.PRNGKey(0))
-    pt = compat.params_from_jax(ct, jax.tree.map(np.asarray, pj))
+    pt = compat.params_from_jax(ct, jax.tree.map(np.asarray, pj), device="cpu")
     toks = np.random.default_rng(0).integers(0, ct.vocab_size, (1, 7))
     hj, _ = japi.prefill(cj, pj, {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
@@ -120,6 +120,17 @@ def test_cuda_is_the_default_and_a_missing_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params)
     assert tapi.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_params_from_jax_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    cj, ct = jregistry.get("qwen2.5-3b").reduced(), tregistry.get("qwen2.5-3b").reduced()
+    tree = numpy_params(cj, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compat.params_from_jax(ct, tree)
+    pt = compat.params_from_jax(ct, tree, device="cpu")
+    assert pt["emb"]["table"].device == torch.device("cpu")
 
 
 def test_kernel_build_without_a_compiler_raises(monkeypatch, tmp_path):

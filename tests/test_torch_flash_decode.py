@@ -9,8 +9,8 @@ of ``tests/test_kernels.py`` plus the serving group size, at the bf16
 tolerance 2e-2 (the partials, which carry no rounding to bf16, at 2e-5). The
 kernel itself is compared with this plain version on the card by
 ``chip_smoke.py``. What decides the route and the launch (the dtype, TMA's
-addressability, the split rule, the packed argument block, the fp32 route's
-scratch buffer) is plain Python and is tested here.
+addressability, the split rule, the packed argument block) is plain Python
+and is tested here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -146,20 +146,4 @@ def test_bf16_launch_refuses_what_the_copies_cannot_read_before_any_launch():
 
 
 def test_bf16_call_packs_one_argument_block():
-    assert tfd._ARGS_SM90.size == 19 * 8               # csrc: struct DecodeArgs
-
-
-def test_workspace_is_reused_per_stream_and_grown():
-    dev = torch.device("cpu")
-    saved = dict(tfd._work)
-    try:
-        tfd._work.clear()
-        part = tfd._workspace(dev, 7, 100)
-        assert part.numel() == 100 and part.dtype == torch.float32
-        assert tfd._workspace(dev, 7, 50) is part             # no allocation
-        assert tfd._workspace(dev, 8, 50) is not part         # another stream: its own
-        grown = tfd._workspace(dev, 7, 400)
-        assert grown.numel() == 400 and tfd._workspace(dev, 7, 10) is grown
-    finally:
-        tfd._work.clear()
-        tfd._work.update(saved)
+    assert tfd._ARGS.size == 19 * 8                    # csrc: struct DecodeArgs, both kernels

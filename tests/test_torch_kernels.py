@@ -16,6 +16,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_fwd
 from repro.kernels.flash_decode import flash_decode as pallas_decode
+from repro.models.attention import decode_attend, flash_ref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops as tops
@@ -186,6 +187,11 @@ def test_decode_partials_merge_across_sequence_shards():
                                atol=1e-5, rtol=1e-5)
 
 
+def _counters():
+    return (tfa.launches, tfa.launches_sm90, tfa.launches_f32,
+            tfd.launches, tfd.launches_sm90, tfd.launches_f32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     (q, k, v), _ = _inputs([(1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)], "float32", 8)
     with pytest.raises(TypeError):
@@ -196,25 +202,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.flash_attention(q[:, :3], k, v)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
-    big = torch.zeros(1, 2, 4, 256)
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(big, big, big)
-    with pytest.raises(ValueError, match="16 query heads"):
-        tfd.flash_decode(torch.zeros(1, 34, 16), torch.zeros(1, 2, 8, 16),
-                         torch.zeros(1, 2, 8, 16), 4)
+    # past the kernels' own limits the CUDA route refuses before any launch (the
+    # CPU route takes these sizes: see the *_past_the_kernel_limits tests)
+    before = _counters()
+    for dt in (torch.float32, torch.bfloat16):
+        big = torch.zeros(1, 2, 4, 256, dtype=dt)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa._launch(big, big, big, True)
+        cache = torch.zeros(1, 2, 8, 16, dtype=dt)
+        for launch in (tfd._launch_f32, tfd._launch_sm90):
+            with pytest.raises(ValueError, match="16 query heads"):
+                launch(torch.zeros(1, 34, 16, dtype=dt), cache, cache, 4, False, 0)
+            wide = torch.zeros(1, 2, 8, 256, dtype=dt)
+            with pytest.raises(ValueError, match="head_dim"):
+                launch(torch.zeros(1, 4, 256, dtype=dt), wide, wide, 4, False, 0)
+    assert _counters() == before
+
+
+def test_f32_launch_refuses_what_the_copies_cannot_read_before_any_launch():
+    """The fp32 kernel copies 16-byte chunks of cache rows; the checks come before
+    the library is built or called."""
+    (q, kc, vc), _ = _inputs([(1, 4, 64), (1, 2, 64, 64), (1, 2, 64, 64)], "float32", 12)
+    before = _counters()
+    flat = torch.zeros(1 + kc.numel())
+    with pytest.raises(ValueError, match="16-byte"):          # base 4 bytes off
+        tfd._launch_f32(q, flat[1:].view(kc.shape), vc, 40, False, 0)
+    with pytest.raises(ValueError, match="16-byte"):          # a row stride of 66 floats
+        tfd._launch_f32(q, kc, torch.zeros(1, 2, 64, 66)[..., :64], 40, True, 0)
+    narrow = torch.zeros(1, 2, 64, 18)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfd._launch_f32(torch.zeros(1, 4, 18), narrow, narrow, 40, False, 0)
+    assert _counters() == before
+
+
+DECODE_PAST_LIMITS = [  # B, H, Hkv, S, D, clen
+    (1, 4, 2, 96, 256, 70),       # head_dim 256
+    (1, 64, 2, 64, 32, 50),       # 32 query heads a KV head
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,clen", DECODE_PAST_LIMITS)
+@pytest.mark.parametrize("partials", [False, True])
+def test_flash_decode_past_the_kernel_limits_matches_the_jax_package(B, H, Hkv, S, D, clen,
+                                                                     partials):
+    """The CPU route takes what the JAX package takes; only the kernels are bounded."""
+    (q, kc, vc), (qj, kcj, vcj) = _inputs([(B, H, D), (B, Hkv, S, D), (B, Hkv, S, D)],
+                                          "float32", seed=13)
+    tol = _tol("float32")
+    before = _counters()
+    want = decode_attend(qj[:, None], kcj.transpose(0, 2, 1, 3), vcj.transpose(0, 2, 1, 3),
+                         clen)[:, 0]
+    if partials:
+        acc, m, l = tfd.flash_decode(q, kc, vc, clen, return_partials=True)
+        accj, mj, lj = pallas_decode(qj, kcj, vcj, clen, block_k=32, return_partials=True,
+                                     interpret=True)
+        _close(m, mj, tol)
+        _close(l, lj, tol)
+        _close(acc, accj, tol)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+    else:
+        o = tfd.flash_decode(q, kc, vc, clen)
+        _close(o, pallas_decode(qj, kcj, vcj, clen, block_k=32, interpret=True), tol)
+    _close(o, want, tol)
+    assert _counters() == before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_past_the_kernel_limits_matches_flash_ref(causal):
+    (q, k, v), (qj, kj, vj) = _inputs([(1, 40, 4, 256), (1, 40, 2, 256), (1, 40, 2, 256)],
+                                      "float32", seed=14)
+    before = _counters()
+    o = tops.mha_forward(q, k, v, causal=causal)
+    _close(o, flash_ref(qj, kj, vj, causal=causal, chunk=16), _tol("float32"))
+    _close(tfa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               causal=causal).transpose(1, 2),
+           flash_ref(qj, kj, vj, causal=causal), _tol("float32"))
+    assert _counters() == before
 
 
 def test_num_splits_rule():
-    assert tfd.num_splits(1, 8) == 1
-    assert tfd.num_splits(512, 8) == 8           # serving: 64 rows a split
-    assert tfd.num_splits(528, 8) == 9
-    n = tfd.num_splits(32768, 8)
-    assert n <= tfd.MAX_SPLIT and n * 8 >= 132   # long cache: enough blocks for the card
-    assert tfd.num_splits(100_000, 1) == tfd.MAX_SPLIT
-    for clen in (1, 63, 64, 65, 300, 1000):
-        n = tfd.num_splits(clen, 4)
-        chunk = -(-clen // n)
-        assert (n - 1) * chunk < clen            # no split is empty
+    """Both routes split by num_splits_sm90: the serving shape gives 16 splits of
+    2-3 tiles, one cluster of 16 CTAs a (batch, kv-head), 128 CTAs in all."""
+    assert tfd.num_splits_sm90(520, 8) == 16
+    tiles = -(-520 // tfd.TILE_SM90)
+    assert {(s + 1) * tiles // 16 - s * tiles // 16 for s in range(16)} == {2, 3}
+    assert tfd.num_splits_sm90(32768, 8) == 16          # 16 runs of 128 tiles
+    assert tfd.num_splits_sm90(1, 8) == 1               # one row: one CTA, no cluster
+    for clen in (1, 15, 17, 63, 64, 65, 300, 1000):
+        n = tfd.num_splits_sm90(clen, 4)
+        assert 1 <= n <= tfd.MAX_SPLIT_SM90
+        assert n <= -(-clen // tfd.TILE_SM90)            # no split is empty
 
 
 def test_launch_counters_do_not_move_on_cpu():
@@ -276,6 +353,30 @@ def test_cuda_kernels_match_plain_versions_on_the_card():
     assert (tfd.launches, tfd.launches_f32) == (n0 + 1, f0 + 1)
     torch.testing.assert_close(od, tfd.flash_decode_plain(q[:, :, 0], k, v, 77),
                                atol=2e-5, rtol=2e-5)
+    # the fp32 decode kernel, one launch with its cluster merge: G 16, head_dim 112,
+    # one cached row, the partials
+    for B, H, Hkv, S, D, clen in [(2, 32, 2, 512, 128, 333), (1, 8, 2, 384, 112, 200),
+                                  (4, 16, 2, 1024, 128, 1)]:
+        (q32, k32, v32), _ = _inputs([(B, H, D), (B, Hkv, S, D), (B, Hkv, S, D)],
+                                     "float32", 15)
+        q32, k32, v32 = q32.cuda(), k32.cuda(), v32.cuda()
+        n0, f0 = tfd.launches, tfd.launches_f32
+        od32 = tfd.flash_decode(q32, k32, v32, clen)
+        acc, m, l = tfd.flash_decode(q32, k32, v32, clen, return_partials=True)
+        assert (tfd.launches, tfd.launches_f32) == (n0 + 2, f0 + 2)
+        torch.testing.assert_close(od32, tfd.flash_decode_plain(q32, k32, v32, clen),
+                                   atol=2e-5, rtol=2e-5)
+        acc_w, m_w, l_w = tfd.flash_decode_plain(q32, k32, v32, clen, return_partials=True)
+        torch.testing.assert_close(m, m_w, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(l, l_w, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(acc / l[..., None], acc_w / l_w[..., None],
+                                   atol=2e-5, rtol=2e-5)
+    # an fp32 cache 4 bytes off a 16-byte boundary: the copies cannot read it
+    flat = torch.zeros(1 + k.numel(), device="cuda")
+    counters = (tfd.launches, tfd.launches_f32, tfd.launches_sm90)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfd.flash_decode(q[:, :, 0], flat[1:].view(k.shape), v, 77)
+    assert (tfd.launches, tfd.launches_f32, tfd.launches_sm90) == counters
     # bf16 decode goes through the sm90 kernel (cp.async ring, mma.sync, cluster merge)
     n0, s0 = tfd.launches, tfd.launches_sm90
     odb = tfd.flash_decode(qb[:, :, 0], kb, vb, 77)

@@ -65,7 +65,7 @@ def both(arch, dtype, seed=0):
     ct = dataclasses.replace(tregistry.get(arch).reduced(), compute_dtype=dtype)
     tree = numpy_params(cj, seed)
     pj = jax.tree.map(jnp.asarray, tree)
-    pt = compat.params_from_jax(ct, tree)
+    pt = compat.params_from_jax(ct, tree, device="cpu")
     return cj, ct, pj, pt
 
 

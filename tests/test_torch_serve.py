@@ -32,7 +32,7 @@ def _engines(arch, slots, max_seq, seed):
     ct = dataclasses.replace(tregistry.get(arch).reduced(), compute_dtype="float32")
     tree = numpy_params(cj, seed)
     ej = jengine.ServeEngine(cj, jax.tree.map(jnp.asarray, tree), slots=slots, max_seq=max_seq)
-    et = tengine.ServeEngine(ct, compat.params_from_jax(ct, tree), slots=slots,
+    et = tengine.ServeEngine(ct, compat.params_from_jax(ct, tree, device="cpu"), slots=slots,
                              max_seq=max_seq, device="cpu")
     return cj, ej, et
 
@@ -102,7 +102,7 @@ def test_prefill_and_serve_steps_greedy_int32():
     cj = dataclasses.replace(jregistry.get("qwen2.5-3b").reduced(), compute_dtype="float32")
     from repro.serve import decode as jdecode
     tree = numpy_params(cj, 5)
-    pj, pt = jax.tree.map(jnp.asarray, tree), compat.params_from_jax(ct, tree)
+    pj, pt = jax.tree.map(jnp.asarray, tree), compat.params_from_jax(ct, tree, device="cpu")
     toks = np.random.default_rng(6).integers(0, ct.vocab_size, (2, 9))
     # attn_chunk != 512 sends both sides through flash_ref with that chunk; the
     # block's MLP differs (bf16 in the reference) so only shapes and types are

@@ -151,13 +151,14 @@ def device_rows(prof):
     return rows
 
 
-def device_profile(fn, iters=20, warmup=3, attempts=3):
-    """Device time of one call of ``fn`` and the device kernels it launches: the
-    durations of the kernels of ``iters`` calls (torch.profiler), summed, over
-    ``iters``, and their count over ``iters``. Gaps between kernels do not
-    count, so the host's enqueue rate cannot hide the kernels' own time. The
-    profiler has been seen to return a window with no kernel records: a window
-    whose kernel count is not a whole multiple of ``iters`` is taken again."""
+def device_profile(fn, iters=20, warmup=3, attempts=3, calls=1):
+    """Device time of one call of ``fn`` and the device kernels that each of the
+    ``calls`` wrapper calls inside ``fn`` launches: the durations of the kernels
+    of ``iters`` calls of ``fn`` (torch.profiler), summed, over ``iters``, and
+    their count over ``iters * calls``. Gaps between kernels do not count, so
+    the host's enqueue rate cannot hide the kernels' own time. The profiler has
+    been seen to return a window with kernel records missing: a window whose
+    kernel count is not a whole multiple of ``iters * calls`` is taken again."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -169,10 +170,10 @@ def device_profile(fn, iters=20, warmup=3, attempts=3):
             torch.cuda.synchronize()
         rows = device_rows(prof)
         launched = sum(r[1] for r in rows)
-        if launched and launched % iters == 0:
-            return sum(r[0] for r in rows) / iters, launched // iters
-    raise AssertionError(f"the profiler recorded no whole window of {iters} calls "
-                         f"in {attempts} attempts")
+        if launched and launched % (iters * calls) == 0:
+            return sum(r[0] for r in rows) / iters, launched // (iters * calls)
+    raise AssertionError(f"the profiler recorded no whole window of {iters} x {calls} "
+                         f"calls in {attempts} attempts")
 
 
 def device_ms(fn, iters=20, warmup=3, attempts=3):
@@ -317,10 +318,10 @@ def time_decode(rng, dt):
     kernel = sweep(lambda i: ops.decode_forward(qd, cache_k[i], cache_v[i], clen))
     library = sweep(lambda i: sdpa(qdt, cache_k[i, :, :clen].transpose(1, 2),
                                    cache_v[i, :, :clen].transpose(1, 2), False))
-    ms, per_sweep = device_profile(kernel, iters=5, warmup=1)
+    ms, per_call = device_profile(kernel, iters=5, warmup=1, calls=n)
     dec = dict(
         ms=ms / n,
-        device_kernels_per_call=per_sweep / n,
+        device_kernels_per_call=per_call,
         wrapper_ms=time_ms(kernel, iters=10, warmup=2) / n,
         plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
             qd, cache_k[i], cache_v[i], clen, mode="reference")), iters=5, warmup=1) / n,

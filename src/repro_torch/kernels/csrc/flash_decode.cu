@@ -70,8 +70,8 @@ namespace {
 constexpr int TN = 16;                     // cache rows of a tile
 constexpr int DP = 128;                    // head dims a tile row holds: four a lane
 constexpr int NW = 4;                      // consumer warps, TN / NW rows of each tile each
-constexpr int NP = 2;                      // producer warps
-constexpr int NTHREADS = (NW + NP) * 32;   // consumer warps 0..3, producer warps 4, 5
+constexpr int NP = 4;                      // producer warps
+constexpr int NTHREADS = (NW + NP) * 32;   // consumer warps 0..3, producer warps 4..7
 constexpr int ROWS_W = TN / NW;            // rows of a tile a consumer warp owns
 constexpr int RING = 5;                    // tile slots
 constexpr int MAX_SPLIT = 16;              // CTAs of a cluster, with the non-portable size
@@ -129,23 +129,26 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
 }
 
-// Sums N values (a power of two, N >= 32) over the 32 lanes of a warp and
-// scatters the sums: afterwards v[i], i < N / 32, holds the warp's sum of
-// value lane * (N / 32) + i. Each halving keeps one half and sends the other
-// to the partner lane: N / 2 + N / 4 + ... + N / 32 shuffles in all.
-template <int N>
-__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+// One halving of reduce_scatter: keep the low HALF values and add the
+// partner lane's copies of them, sent from its high half.
+template <int HALF, int OFF>
+__device__ __forceinline__ void reduce_scatter_step(float (&v)[32]) {
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int off = 16 >> s, half = N >> (s + 1);
-    const bool upper = lane & off;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = upper ? v[i] : v[i + half];
-      const float keep = upper ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
+  for (int i = 0; i < HALF; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i + HALF], OFF);
+}
+
+// Sums 32 values over the 32 lanes of a warp and scatters the sums: a lane
+// holds value s ^ lane in slot s, so that after the five halvings (16 + 8 + 4
+// + 2 + 1 shuffles) slot 0 holds the warp's sum of value `lane`. The order of
+// the slots is what lets every lane keep its low half and send its high half,
+// with no select; the steps are templates so that every index is a constant
+// and v stays in registers.
+__device__ __forceinline__ void reduce_scatter(float (&v)[32]) {
+  reduce_scatter_step<16, 16>(v);
+  reduce_scatter_step<8, 8>(v);
+  reduce_scatter_step<4, 4>(v);
+  reduce_scatter_step<2, 2>(v);
+  reduce_scatter_step<1, 1>(v);
 }
 
 // Four output columns of one (batch, head) row: normalised, or the partials
@@ -168,7 +171,7 @@ __device__ __forceinline__ void write_quad(const Params& p, int64_t row, int col
 
 // GP: heads of a group, padded (8 or 16). A step of a consumer warp is
 // RS = 32 / GP of its rows, RS x GP scores, one a lane. Up to 8 heads: two
-// CTAs an SM (at most 168 registers a thread). With 16 heads q and acc take
+// CTAs an SM (at most 128 registers a thread). With 16 heads q and acc take
 // 128 registers of their own, so one CTA an SM.
 template <int GP>
 __global__ void __launch_bounds__(NTHREADS, GP == 8 ? 2 : 1)
@@ -238,16 +241,20 @@ __global__ void __launch_bounds__(NTHREADS, GP == 8 ? 2 : 1)
     const int col = 4 * lane;                 // this lane's four head dims
     const bool owns = col < D;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 qr[GP], acc[GP];
+    // this lane's score in a step is value `lane`: row lane / GP of the step,
+    // head lane % GP. Its partial dots are in the reduce-scatter's order, slot
+    // s holding value s ^ lane: row (s / GP) ^ r_l, head (s % GP) ^ g_l. So q
+    // is held in that head order (qx[h] is head h ^ g_l), and acc by head.
+    const int r_l = lane / GP, g_l = lane % GP;
+    float4 qx[GP], acc[GP];
     const float* qb = p.q + ((int64_t)b * H + hk * G) * D;
 #pragma unroll
-    for (int g = 0; g < GP; ++g) {
-      qr[g] = (g < G && owns) ? __ldg(reinterpret_cast<const float4*>(qb + g * D + col)) : zero;
-      acc[g] = zero;
+    for (int h = 0; h < GP; ++h) {
+      const int g = h ^ g_l;
+      qx[h] = (g < G && owns) ? __ldg(reinterpret_cast<const float4*>(qb + g * D + col)) : zero;
+      acc[h] = zero;
     }
-    // this lane's score in a step: row lane / GP of the step, head lane % GP;
-    // the running max (log2 units) and sum of that head, alike in its lanes
-    const int r_l = lane / GP;
+    // the running max (log2 units) and sum of head g_l, alike in its lanes
     float m_run = NEG_INF, l_run = 0.f;
     float* p_w = reinterpret_cast<float*>(smem + Ly::STAGE) + warp * Ly::STAGE_W;   // [RS][GP]
     float* c_w = p_w + 32;                                                            // [GP]
@@ -260,16 +267,17 @@ __global__ void __launch_bounds__(NTHREADS, GP == 8 ? 2 : 1)
       const int row0 = (t_begin + j) * TN + warp * ROWS_W;
 #pragma unroll
       for (int st = 0; st < ROWS_W / RS; ++st) {
-        // Q K^T: partial dots over this lane's head dims, RS rows x GP heads
+        // Q K^T: partial dots over this lane's head dims, RS rows x GP heads,
+        // in slot order
         float part[32];
 #pragma unroll
         for (int r = 0; r < RS; ++r) {
-          const float4 kk = owns ? *reinterpret_cast<const float4*>(k_t + (st * RS + r) * DP + col)
-                                 : zero;
+          const int row = st * RS + (r ^ r_l);
+          const float4 kk = owns ? *reinterpret_cast<const float4*>(k_t + row * DP + col) : zero;
 #pragma unroll
-          for (int g = 0; g < GP; ++g) part[r * GP + g] = dot4(qr[g], kk);
+          for (int h = 0; h < GP; ++h) part[r * GP + h] = dot4(qx[h], kk);
         }
-        reduce_scatter(part, lane);           // part[0]: score (r_l, lane % GP)
+        reduce_scatter(part);                 // part[0]: score (r_l, g_l)
 
         // online softmax, one score a lane; a head's lanes are lane % GP + GP k
         const bool valid = row0 + st * RS + r_l < clen;
@@ -290,7 +298,9 @@ __global__ void __launch_bounds__(NTHREADS, GP == 8 ? 2 : 1)
         if (lane < GP) c_w[lane] = corr;
         __syncwarp();
 
-        // P V: rescale, then add the step's rows; P and the corrections are broadcasts
+        // P V: rescale (unless no head's max moved), then add the step's rows;
+        // P and the corrections are broadcasts
+        if (__any_sync(0xffffffffu, corr != 1.f))
 #pragma unroll
         for (int g4 = 0; g4 < GP / 4; ++g4) {
           const float4 c = reinterpret_cast<const float4*>(c_w)[g4];

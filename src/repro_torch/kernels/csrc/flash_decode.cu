@@ -27,7 +27,7 @@
 //   owners' inboxes with stores to distributed shared memory, then one
 //   cluster barrier, then each CTA merges its own columns and writes them.
 //   A single split skips the cluster altogether.
-// - enough bytes in flight: two producer warps copy each K and V tile in
+// - enough bytes in flight: four producer warps copy each K and V tile in
 //   16-byte cp.async chunks, a warp to a 512-byte row, into a ring of RING
 //   slots with full and empty mbarriers; each producer thread's copies arrive
 //   on the tile's full barrier when they land. At the serving shape a split
@@ -35,23 +35,29 @@
 //   at once; at 32k the ring keeps the next four tiles in flight while the
 //   consumers work. Rows past cache_len are zero-filled and read nothing;
 //   head dims past D are neither copied nor read. 97,360 bytes of shared
-//   memory, so two CTAs fit an SM (a 16-CTA cluster then needs only 8 SMs of
-//   one GPC).
+//   memory and at most 128 registers a thread, so two CTAs fit an SM: with
+//   one an SM, 16-CTA clusters do not all fit the card at once.
 // - fp32 FMAs fed from registers: each of the four consumer warps owns four
 //   rows of every tile, and a lane owns four head dims (a float4 column) of
 //   q and of acc for all G heads. Q K^T: the lane reads each of its rows' K
 //   float4 once (a warp reads a 512-byte row, no bank conflict) and does 4 G
 //   FMAs with it, G per float; the warp's 4 x 8 partial dots (G 8; 2 x 16 at
 //   G 16) are summed across lanes by a shuffle reduce-scatter that leaves one
-//   score a lane (31 shuffles for 32 scores). The online softmax runs one
-//   score a lane, in base 2 with log2(e) folded into the scale, the max and
-//   sum of a head over the lanes that hold it by shuffles. P V: the
+//   score a lane (31 shuffles for 32 scores, no selects: each lane computes
+//   its partials in the order the halvings consume them). The online softmax
+//   runs one score a lane, in base 2 with log2(e) folded into the scale, the
+//   max and sum of a head over the lanes that hold it by shuffles. P V: the
 //   probabilities and the heads' corrections go through 48 floats of shared
-//   memory that the warp reads back as broadcasts; a lane reads each of its
-//   rows' V float4 once and does 4 G FMAs with it. No tensor cores: TF32
-//   would not agree with an fp32 reference to 2e-5.
+//   memory that the warp reads back as broadcasts (the rescale is skipped
+//   when no head's max moved); a lane reads each of its rows' V float4 once
+//   and does 4 G FMAs with it. No tensor cores: TF32 would not agree with an
+//   fp32 reference to 2e-5.
 // - the four warps' states merge in shared memory when the CTA's tiles are
 //   done, into the CTA's partial, as in flash_decode_sm90.cu.
+// What bounds it at 32k: the 8 clusters of 16 do not each get 16 SMs, so some
+// SMs hold two CTAs, and those CTAs, with twice the copies and the
+// arithmetic on their SM, finish last; the others stream near the memory
+// rate (PERF.md).
 // Where it departs from src/repro/core/kprog/decode.py (SplitKVDecode): the
 // consumers run fp32 FMAs rather than tensor-core products, and the merge is
 // inside the cluster rather than in separate reduction CTAs that read the

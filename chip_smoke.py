@@ -16,6 +16,10 @@ Phases, each printing one JSON line:
            Kernel and library times are device times (kernel durations from
            torch.profiler); wrapper_ms is the host-clocked time of a call
            through the wrapper; a decode call must run one device kernel
+  sim      the simulator's predictions (simulate_fa3 and analytical.analyze on
+           the H800 preset, 1.83 GHz) for the bf16 kernels' four timed shapes,
+           one line each beside the kernels phase's device time (not timed
+           again) and the card's SM clock; about a minute of host time
   serve    qwen2.5-3b at full width and depth, bf16, random seeded weights:
            8 requests of 512 prompt tokens through ServeEngine (4 slots,
            16 new tokens each); asserts the kernels' launch counts
@@ -47,6 +51,10 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import registry                      # noqa: E402
+from repro_torch.configs.llama3 import AttnWorkload           # noqa: E402
+from repro_torch.core import analytical                       # noqa: E402
+from repro_torch.core.machine import H800                     # noqa: E402
+from repro_torch.core.simfa import simulate_fa3               # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
@@ -103,6 +111,13 @@ LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def sm_clock():
+    """The card's SM clock and its maximum, now, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
 
 
 def randn(rng, shape, dtype):
@@ -321,6 +336,7 @@ def time_decode(rng, dt):
     ms, per_call = device_profile(kernel, iters=5, warmup=1, calls=n)
     dec = dict(
         ms=ms / n,
+        sm_clock=sm_clock(),
         device_kernels_per_call=per_call,
         wrapper_ms=time_ms(kernel, iters=10, warmup=2) / n,
         plain_ms=time_ms(sweep(lambda i: ops.decode_forward(
@@ -349,9 +365,10 @@ def time_long_decode(rng, dt):
                   f"flash_decode {dt} long cache via ops")
     qdt, kt, vt = qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     ms = device_ms(lambda: ops.decode_forward(qd, kc, vc, s["clen"]))
+    clock = sm_clock()
     bound_ms = bound(*dec_costs(s["B"], s["H"], s["Hkv"], s["D"], s["clen"], dt))[0]
     return dict(at="B{B} H{H} Hkv{Hkv} cache_len{clen} D{D} ".format(**s) + str(dt)[6:],
-                ms=ms, library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)),
+                ms=ms, sm_clock=clock, library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)),
                 bound_ms=bound_ms, share_of_3_35_tb_s=bound_ms / ms), err
 
 
@@ -423,6 +440,7 @@ def phase_kernels():
                 f"library yardstick (forward, {dt})")
         fwd[name] = dict(
             ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+            sm_clock=sm_clock(),
             wrapper_ms=time_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
             plain_ms=time_ms(lambda: ops.mha_forward(q, k, v, causal=True, mode="reference"),
                              iters=10),
@@ -442,6 +460,7 @@ def phase_kernels():
         fwd[name]["long"] = dict(
             at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal {str(dt)[6:]}",
             ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+            sm_clock=sm_clock(),
             library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
             bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
         del q, k, v, qt, kt, vt
@@ -482,6 +501,57 @@ def phase_kernels():
          "launches": 0, "max_abs_err": worst["flash_decode_f32"], **dec["flash_decode_f32"],
          "cases": cases["flash_decode_f32"], "timed_at": serve_dec + " float32, cold L2"},
     ]
+
+
+def sim_shapes():
+    """(kernels-line row, "serving" or "long", kernel program, workload) of each
+    shape the sim phase predicts: the bf16 kernels' four timed shapes. A decode
+    workload's S is the cache length the kernel was timed at."""
+    s, (B, H, Hkv, L, D), d, dl = SERVE_FWD, LONG_FWD, SERVE_DEC, LONG_DEC
+    return [
+        ("flash_fwd", "serving", "fa3",
+         AttnWorkload("prefill", B=s["B"], L=s["L"], S=s["L"], H_kv=s["Hkv"],
+                      G=s["H"] // s["Hkv"], D=s["D"], causal=True)),
+        ("flash_fwd", "long", "fa3",
+         AttnWorkload("prefill_long", B=B, L=L, S=L, H_kv=Hkv, G=H // Hkv, D=D, causal=True)),
+        ("flash_decode", "serving", "splitkv_decode",
+         AttnWorkload("decode", B=d["B"], L=1, S=d["clen"], H_kv=d["Hkv"],
+                      G=d["H"] // d["Hkv"], D=d["D"])),
+        ("flash_decode", "long", "splitkv_decode",
+         AttnWorkload("decode_long", B=dl["B"], L=1, S=dl["clen"], H_kv=dl["Hkv"],
+                      G=dl["H"] // dl["Hkv"], D=dl["D"])),
+    ]
+
+
+def phase_sim(kernels):
+    """The simulator's prediction of each bf16 kernel's timed shape, beside the
+    device time the kernels phase measured there. Fails when the simulator
+    deadlocks, aborts or counts no cycle; the ratio is a reading, not a check."""
+    if not kernels:
+        raise SystemExit("the sim phase reads the kernels phase's times: run both")
+    rows = {k["name"]: k for k in kernels}
+    for name, which, program, w in sim_shapes():
+        timing = rows[name] if which == "serving" else rows[name]["long"]
+        t0 = time.perf_counter()
+        res = simulate_fa3(w, H800, kernel=program)
+        host_s = time.perf_counter() - t0
+        if res.deadlocked or res.aborted or not res.cycles > 0:
+            raise AssertionError(f"sim {w.name}: deadlocked={res.deadlocked} "
+                                 f"aborted={res.aborted} cycles={res.cycles}")
+        ana = analytical.analyze(w, H800, kernel=program)
+        sim_us = res.cycles / (H800.freq_ghz * 1e3)
+        measured_us = timing["ms"] * 1e3
+        emit({"phase": "sim", "kernel": name, "program": program, "workload": w.name,
+              "shape": f"B{w.B} H{w.H_kv * w.G} Hkv{w.H_kv} L{w.L} S{w.S} D{w.D}"
+                       + (" causal" if w.causal else ""),
+              "preset": H800.name, "freq_ghz": H800.freq_ghz, "sim_cycles": res.cycles,
+              "sim_us": sim_us, "analytical_us": ana.latency * 1e6,
+              "analytical_bound": ana.bottleneck, "measured_us": measured_us,
+              "sim_over_measured": sim_us / measured_us,
+              "fidelity": res.fidelity, "ctas": res.n_ctas_total,
+              "host_seconds": host_s,
+              "sm_clock_at_timing": timing["sm_clock"],
+              "sm_clock_now": sm_clock()})
 
 
 def reset_counts():
@@ -694,7 +764,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,serve,path,path_f32")
+    ap.add_argument("--phases", default="device,build,kernels,sim,serve,path,path_f32")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -703,6 +773,8 @@ def main(argv=None):
     if "build" in phases:
         phase_build(args.ptxas)
     kernels = phase_kernels() if "kernels" in phases else []
+    if "sim" in phases:
+        phase_sim(kernels)
     if "serve" in phases:
         phase_serve(kernels)
     if "path" in phases:
@@ -712,7 +784,7 @@ def main(argv=None):
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
-    complete = all(p in phases for p in ("build", "kernels", "serve", "path", "path_f32"))
+    complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

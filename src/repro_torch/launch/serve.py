@@ -6,8 +6,10 @@
 ``--reduced`` (the default) serves the tiny same-family config; ``--full`` (or
 ``--no-reduced``) serves the architecture at its published size. ``--device``
 defaults to ``cuda`` and a missing card is an error; ``--device cpu`` runs the
-plain PyTorch path. The latency predictions the JAX launcher prints come from
-the simulator, which this port does not hold yet: none is printed.
+plain PyTorch path. Before serving it prints the simulator's split-KV decode
+prediction for the serving workload on the H800 preset, as the JAX launcher
+does. The JAX launcher's ``SimFA-TPU`` line has no counterpart while
+``core/tpu/`` is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.configs.llama3 import AttnWorkload
+from repro_torch.core import analytical
+from repro_torch.core.machine import H800
 from repro_torch.models import api
 from repro_torch.serve.engine import Request, ServeEngine, StragglerPolicy
 
@@ -38,6 +43,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def decode_prediction(cfg, slots: int, max_seq: int) -> str:
+    """The analytical model's split-KV decode step for ``slots`` rows of a
+    ``max_seq`` cache, on the H800 preset, as one line of text."""
+    w = AttnWorkload(name="decode", B=slots, L=1, S=max_seq,
+                     H_kv=cfg.num_kv_heads or 4, G=cfg.q_group_size or 1,
+                     D=cfg.head_dim)
+    gpu = analytical.analyze(w, H800, kernel="splitkv_decode")
+    return (f"SimFA-H800 split-KV decode prediction: {gpu.latency*1e6:.1f} us "
+            f"({gpu.bottleneck}-bound, "
+            f"{gpu.dram_bytes/1e6:.2f} MB DRAM/step)")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -46,6 +63,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     params = api.init(cfg, args.seed, device=device)
+    print(decode_prediction(cfg, args.slots, args.max_seq))
 
     eng = ServeEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
                       straggler=StragglerPolicy(expected_step_s=0.5, factor=10),

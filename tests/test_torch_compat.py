@@ -91,7 +91,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.models.api", "repro_torch.kernels.ref", "repro_torch.kernels.ops",
                 "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.flash_decode", "repro_torch.serve.decode",
-                "repro_torch.serve.engine", "repro_torch.launch.serve"}
+                "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.core.simfa", "repro_torch.core.engine",
+                "repro_torch.core.kprog.registry", "repro_torch.analysis.dag",
+                "repro_torch.obs.counters", "repro_torch.faults.watchdog"}
         missing = need - set(names)
         assert not missing, missing
         bad = [m for m in sys.modules

@@ -141,6 +141,8 @@ def test_launcher_flags(capsys):
                        "--max-new", "2", "--prompt-len", "5", "--max-seq", "16"]) == 0
     out = capsys.readouterr().out
     assert "served 3 requests / 6 tokens of qwen2.5-3b-reduced on cpu in" in out
+    cfg = tregistry.get("qwen2.5-3b").reduced()
+    assert serve.decode_prediction(cfg, 2, 16) + "\n" in out
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if torch.cuda.is_available():
             raise RuntimeError("no CUDA device (skipped: a card is present)")
@@ -150,3 +152,19 @@ def test_launcher_flags(capsys):
     assert parse([]).reduced is True and parse(["--reduced"]).reduced is True
     assert parse(["--full"]).reduced is False and parse(["--no-reduced"]).reduced is False
     assert parse([]).device == "cuda" and parse([]).arch == "qwen2.5-3b"
+
+
+def test_launcher_decode_prediction_matches_reference():
+    """The port's launcher line equals the reference launcher's arithmetic and format."""
+    from repro.configs.llama3 import AttnWorkload
+    from repro.core import analytical
+    from repro.core.machine import H800
+    from repro_torch.launch import serve
+    cj = jregistry.get("qwen2.5-3b").reduced()
+    w = AttnWorkload(name="decode", B=4, L=1, S=64, H_kv=cj.num_kv_heads or 4,
+                     G=cj.q_group_size or 1, D=cj.head_dim)
+    gpu = analytical.analyze(w, H800, kernel="splitkv_decode")
+    want = (f"SimFA-H800 split-KV decode prediction: {gpu.latency*1e6:.1f} us "
+            f"({gpu.bottleneck}-bound, "
+            f"{gpu.dram_bytes/1e6:.2f} MB DRAM/step)")
+    assert serve.decode_prediction(tregistry.get("qwen2.5-3b").reduced(), 4, 64) == want

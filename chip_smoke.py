@@ -11,7 +11,8 @@ Phases, each printing one JSON line:
            card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
            flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
            flash_decode_sm90.cu), and timed at the serving shapes and at a
-           long context beside its plain version, one library call (a
+           long context (the bf16 forward also at olmo-1b's training shape)
+           beside its plain version, one library call (a
            yardstick only: the port never calls it) and its roofline bound.
            Kernel and library times are device times (kernel durations from
            torch.profiler); wrapper_ms is the host-clocked time of a call
@@ -28,6 +29,15 @@ Phases, each printing one JSON line:
   path_f32 the model in float32 at 2 layers: the engine's prefills go through
            the fp32 kernel (launch counts asserted), and first-step logits
            match mode="reference" at 1e-3
+  train    olmo-1b at full width and depth, bf16 compute on fp32 master weights:
+           5 AdamW steps of batch 4 x 512 tokens (remat "full"); the attention
+           gradients through the kernel route against mode="reference" at the
+           training shape (bf16) and at one fp32 shape, step 1's loss and
+           grad-norm against a step under mode="reference" from the same
+           weights (and every layer's wq/wk/wv gradients: none zero), 2 x 16
+           forward-kernel launches a step (the forward and its recompute);
+           step ms, tokens/s, model FLOP/s share, peak memory, and one more
+           step under the profiler
   profile  (only when named in --phases) one prefill and four decode steps of
            the full model under torch.profiler: wall time, device-busy time,
            idle share and the kernels that take most of the device time
@@ -50,6 +60,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch import tree                                  # noqa: E402
 from repro_torch.configs import registry                      # noqa: E402
 from repro_torch.configs.llama3 import AttnWorkload           # noqa: E402
 from repro_torch.core import analytical                       # noqa: E402
@@ -60,6 +71,9 @@ from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
 from repro_torch.models import api                            # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
+from repro_torch.data.synthetic import DataIterator           # noqa: E402
+from repro_torch.train import optimizer as opt                # noqa: E402
+from repro_torch.train import trainer                         # noqa: E402
 
 # published peaks of one H100 SXM (dense): operations per second by input type,
 # and bytes per second of device memory
@@ -103,6 +117,12 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (4, 16, 2, 1024, 128, 1),      # one cached row
     (1, 16, 2, 32768, 128, 32768), # the longest context of qwen2.5-3b
 ]
+TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
+TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
+    ((4, 16, 16, 512, 128), torch.bfloat16),   # olmo-1b's training shape
+    ((2, 8, 2, 300, 128), torch.float32),      # fp32, G = 4, ragged rows
+]
+TRAIN_TOL = 2e-2       # step 1 through the kernels against mode="reference", relative
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
 LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
@@ -465,6 +485,20 @@ def phase_kernels():
             bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
         del q, k, v, qt, kt, vt
 
+    # the bf16 kernel at olmo-1b's training shape (the train phase's forward)
+    B, H, Hkv, L, D = TRAIN_GRAD_CASES[0][0]
+    q = randn(rng, (B, L, H, D), torch.bfloat16)
+    k = randn(rng, (B, L, Hkv, D), torch.bfloat16)
+    v = randn(rng, (B, L, Hkv, D), torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd["flash_fwd"]["train"] = dict(
+        at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal bfloat16",
+        ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+        sm_clock=sm_clock(),
+        library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
+        bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, torch.bfloat16, True))[0])
+    del q, k, v, qt, kt, vt
+
     # decode in both types at the serving shape and at a long cache
     dec = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -709,6 +743,172 @@ def phase_path_f32(kernels):
           "logits_tolerance": LOGITS_TOL_F32, "prefill_logits_max_abs_err": float(err.max())})
 
 
+def attention_grads(rng, shape, dtype):
+    """The forward output and q/k/v gradients of ``ops.mha_forward`` (model-side
+    layout) through the kernel route against ``mode="reference"``, both under
+    autograd; returns the worst error of each, and times (CUDA events): the
+    plain version without grad beside the forward's bound, and forward plus
+    backward through the kernel route and through the library call. (The
+    kernels phase times the forward kernel at the training shape.)"""
+    B, H, Hkv, L, D = shape
+    q, k, v = (randn(rng, (B, L, h, D), dtype).requires_grad_(True) for h in (H, Hkv, Hkv))
+    r = randn(rng, (B, L, H, D), torch.float32)
+    out = {}
+    for mode in (None, "reference"):
+        o = ops.mha_forward(q, k, v, causal=True, mode=mode)
+        if mode is None and o.grad_fn is None:
+            raise AssertionError("mha_forward under grad gave an output with no grad_fn")
+        out[mode] = (o.detach(),) + torch.autograd.grad((o.float() * r).sum(), (q, k, v))
+    what = f"attention gradients {shape} causal {dtype}"
+    errs = {name: compare(got, want, dtype, f"{what}: {name}")
+            for name, got, want in zip(("o", "dq", "dk", "dv"), out[None], out["reference"])}
+
+    def fwd_bwd(fn):
+        def run():
+            o = fn()
+            torch.autograd.grad((o.float() * r).sum(), (q, k, v))
+        return run
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rt = r.transpose(1, 2)
+    lib = lambda: torch.autograd.grad((sdpa(qt, kt, vt, True).float() * rt).sum(), (q, k, v))
+    with torch.no_grad():
+        times = dict(plain_fwd_ms=time_ms(lambda: ops.mha_forward(q, k, v, causal=True,
+                                                                  mode="reference"), iters=5))
+    times["bound_fwd_ms"], times["bound_fwd_by"] = bound(
+        *fwd_costs(B, H, Hkv, L, L, D, dtype, True))
+    times.update(fwd_bwd_ms=time_ms(fwd_bwd(lambda: ops.mha_forward(q, k, v, causal=True)),
+                                    iters=10, warmup=2),
+                 library_fwd_bwd_ms=time_ms(lib, iters=10, warmup=2))
+    return errs, times
+
+
+def attention_weight_grads(cfg, run, params, batch):
+    """The gradients of every layer's wq, wk and wv through the kernel route:
+    none may be zero. Their distance from mode="reference"'s (relative, in
+    norm) is a reading for the first and the last layer, not a check: the two
+    routes round P differently in every layer's forward and backward, and the
+    difference compounds down the 16 layers (the attention gradient itself is
+    checked by ``attention_grads``, the step by its loss and grad-norm)."""
+    names = ("wq", "wk", "wv")
+    ws = [blk["attn"][n]["w"] for blk in params["blocks"] for n in names]
+    got = {}
+    for mode in (None, "reference"):
+        loss, _ = trainer.make_loss_fn(cfg, run, mode=mode)(params, batch)
+        got[mode] = torch.autograd.grad(loss, ws)
+    zero = [f"layer {i // 3} {names[i % 3]}" for i, g in enumerate(got[None])
+            if not float(g.abs().sum()) > 0]
+    if zero:
+        raise AssertionError(f"train: no gradient through the kernel route for {zero}")
+    out = {}
+    for layer in (0, cfg.num_layers - 1):
+        for k, name in enumerate(names):
+            g, want = got[None][3 * layer + k], got["reference"][3 * layer + k]
+            out[f"layer{layer}.{name}"] = {
+                "norm": float(g.norm()),
+                "relative_difference": float((g - want).norm() / want.norm())}
+    return out
+
+
+def train_flops(cfg, params, tokens):
+    """Model FLOPs of one step with remat "full" and the tied unembedding: 6 N T
+    for the blocks' forward and backward, 2 N T for their recompute (N the
+    parameters outside the embedding), and 8 T d V for the unembedding's forward,
+    its recompute in the chunked loss and its backward."""
+    n = sum(p.numel() for p in tree.leaves(params["blocks"]))
+    return 8 * n * tokens + 8 * tokens * cfg.d_model * cfg.vocab_size
+
+
+def phase_train(kernels):
+    """Full-width olmo-1b trained for a few steps through the forward kernel."""
+    rng = np.random.default_rng(4)
+    grads, grad_times = {}, {}
+    for shape, dt in TRAIN_GRAD_CASES:
+        key = f"B{shape[0]} H{shape[1]} Hkv{shape[2]} L=S={shape[3]} D{shape[4]} {str(dt)[6:]}"
+        grads[key], grad_times[key] = attention_grads(rng, shape, dt)
+
+    cfg = registry.get(TRAIN["arch"])
+    B, S, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    run = trainer.RunConfig(remat="full", microbatches=1,
+                            opt=opt.OptConfig(lr=3e-4, warmup_steps=2))
+    data = DataIterator(cfg, batch=B, seq=S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in next(data).items()}
+               for _ in range(n_steps)]
+
+    # step 1 through the plain attention, from the same seeded weights
+    state = trainer.init_state(cfg, run, 0, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = trainer.make_train_step(cfg, run, mode="reference")(state, batches[0])
+    ref = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    del state, m
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    state = trainer.init_state(cfg, run, 0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    weight_grads = attention_weight_grads(cfg, run, state.params, batches[0])
+    step_fn = trainer.make_train_step(cfg, run)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms, metrics, launches = [], [], []
+    for batch in batches:
+        before = fa.launches_sm90
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(fa.launches_sm90 - before)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # two more steps after the counted ones: one untraced, one traced
+    prof = profiled(lambda: step_fn(state, batches[0]))
+
+    L = cfg.num_layers
+    if launches != [2 * L] * n_steps or counts["flash_fwd"] != 2 * L * n_steps or any(
+            counts[k] for k in ("flash_fwd_f32", "flash_decode", "flash_decode_f32")):
+        raise AssertionError(f"train launches {launches} a step, {counts} in all; want "
+                             f"{2 * L} on the bf16 forward kernel a step (forward + "
+                             "recompute) and nothing else")
+    losses = [x["loss"] for x in metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    rel = {k: abs(metrics[0][k] - ref[k]) / abs(ref[k]) for k in ref}
+    if any(x > TRAIN_TOL for x in rel.values()):
+        raise AssertionError(f"train step 1 through the kernels {metrics[0]} against "
+                             f"mode='reference' {ref}: relative differences {rel}")
+    for kern in kernels:
+        if kern["name"] == "flash_fwd":
+            kern["launches_train"] = counts["flash_fwd"]
+
+    tokens = B * S
+    flops = train_flops(cfg, state.params, tokens)
+    med_ms = float(np.median(step_ms[1:]))
+    emit({"phase": "train", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "compute_dtype": cfg.compute_dtype,
+          "params": sum(p.numel() for p in tree.leaves(state.params)),
+          "batch": B, "seq": S, "steps": n_steps, "remat": run.remat,
+          "init_seconds": round(init_s, 2), "losses": losses,
+          "grad_norms": [x["grad_norm"] for x in metrics], "lrs": [x["lr"] for x in metrics],
+          "step1_reference": ref, "step1_relative_difference": rel,
+          "step1_tolerance": TRAIN_TOL, "reference_step_ms": ref_ms,
+          "attention_weight_grads": weight_grads,
+          "attention_grad_max_abs_err": grads, "attention_grad_tolerance":
+          {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]},
+          "attention_timings": grad_times,
+          "flash_fwd_launches_per_step": launches, "launches": counts,
+          "step_ms": step_ms, "step_ms_median_2_to_5": med_ms,
+          "tokens_per_s": tokens / (med_ms / 1e3), "model_flops_per_step": flops,
+          "model_flops_share_of_989_tflops": flops / (med_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_gb": peak_gb, "profile_one_step": prof})
+    del state
+    torch.cuda.empty_cache()
+
+
 def profiled(fn, top=12):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
@@ -764,7 +964,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,sim,serve,path,path_f32")
+    ap.add_argument("--phases", default="device,build,kernels,sim,serve,path,path_f32,train")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -781,10 +981,13 @@ def main(argv=None):
         phase_path()
     if "path_f32" in phases:
         phase_path_f32(kernels)
+    if "train" in phases:
+        phase_train(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
-    complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32"))
+    complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32",
+                                         "train"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

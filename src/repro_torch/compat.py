@@ -1,9 +1,16 @@
-"""Parameter hand-over between the JAX package's pytrees and this port.
+"""Parameter and train-state hand-over between the JAX package's pytrees and
+this port.
 
 The JAX package stacks every block leaf along a leading layer dim (its layers
 are scanned); the port keeps a Python list of per-layer dicts. Both sides store
 ``dense`` weights as ``(d_in, d_out)``, used as ``x @ w``, so no leaf is
 transposed. The functions take and give numpy arrays only.
+
+A train state crosses as the reference's ``TrainState(params,
+OptState(m, v, step), ef_error)`` structure: ``train_state_from_jax`` reads
+any object of that shape (the JAX package's own, with numpy leaves), and
+``train_state_to_jax`` gives the port's ``TrainState`` / ``OptState``
+NamedTuples holding numpy leaves in the JAX layout (blocks stacked).
 """
 from __future__ import annotations
 
@@ -12,13 +19,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.tree import leaves, map_leaves
 from repro_torch.models.api import resolve_device
-
-
-def _map(node, fn):
-    if isinstance(node, dict):
-        return {k: _map(v, fn) for k, v in node.items()}
-    return fn(node)
+from repro_torch.train.optimizer import OptState
+from repro_torch.train.trainer import TrainState
 
 
 def params_from_jax(cfg, tree: Dict[str, Any], *, device="cuda"):
@@ -30,8 +34,8 @@ def params_from_jax(cfg, tree: Dict[str, Any], *, device="cuda"):
     def leaf(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    out = {k: _map(v, leaf) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(tree["blocks"], lambda a, i=i: leaf(np.asarray(a)[i]))
+    out = {k: map_leaves(leaf, v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [map_leaves(lambda a, i=i: leaf(np.asarray(a)[i]), tree["blocks"])
                      for i in range(n)]
     return out
 
@@ -41,8 +45,8 @@ def params_to_jax(cfg, params) -> Dict[str, Any]:
     def leaf(t):
         return t.detach().to("cpu").numpy().copy()
 
-    out = {k: _map(v, leaf) for k, v in params.items() if k != "blocks"}
-    blocks = [_map(b, leaf) for b in params["blocks"]]
+    out = {k: map_leaves(leaf, v) for k, v in params.items() if k != "blocks"}
+    blocks = [map_leaves(leaf, b) for b in params["blocks"]]
 
     def stack(nodes):
         if isinstance(nodes[0], dict):
@@ -51,3 +55,29 @@ def params_to_jax(cfg, params) -> Dict[str, Any]:
 
     out["blocks"] = stack(blocks)
     return out
+
+
+def train_state_from_jax(cfg, state, *, device="cuda") -> TrainState:
+    """The port's ``TrainState`` on ``device`` from a JAX-layout train state
+    (numpy leaves): params with ``requires_grad``, fp32 moments, the step as a
+    0-d int32 tensor, ``ef_error`` or ``None``."""
+    device = resolve_device(device)
+    params = params_from_jax(cfg, state.params, device=device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    o = state.opt_state
+    step = torch.tensor(int(np.asarray(o.step)), dtype=torch.int32, device=device)
+    ef = (None if state.ef_error is None
+          else params_from_jax(cfg, state.ef_error, device=device))
+    return TrainState(params, OptState(params_from_jax(cfg, o.m, device=device),
+                                       params_from_jax(cfg, o.v, device=device), step), ef)
+
+
+def train_state_to_jax(cfg, state) -> TrainState:
+    """``state`` in the JAX layout, numpy leaves: ``TrainState(params,
+    OptState(m, v, step), ef_error)`` with ``step`` an int32 0-d array."""
+    o = state.opt_state
+    step = np.asarray(o.step.detach().to("cpu").numpy(), dtype=np.int32)
+    ef = None if state.ef_error is None else params_to_jax(cfg, state.ef_error)
+    return TrainState(params_to_jax(cfg, state.params),
+                      OptState(params_to_jax(cfg, o.m), params_to_jax(cfg, o.v), step), ef)

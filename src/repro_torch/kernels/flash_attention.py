@@ -31,6 +31,15 @@ copied or padded.
 A CPU tensor takes ``flash_attention_plain``. ``launches_sm90`` and
 ``launches_f32`` count the launches of each kernel, ``launches`` their sum;
 nothing else moves them.
+
+``FlashAttentionFn`` makes the forward differentiable. Its forward is
+``flash_attention`` (the kernel on a CUDA tensor, the plain version on a CPU
+one); its backward recomputes ``flash_attention_plain`` from the saved q, k and
+v under autograd (with ``pv_bf16`` for bf16, as the bf16 kernel rounds P) and
+returns the gradient of that. The backward is plain PyTorch on purpose: the
+JAX package has no backward kernel either, its gradient is XLA's autodiff of
+the jnp ``flash_ref``. Under ``torch.utils.checkpoint`` the forward runs again
+in the backward pass, and that launch is counted like any other.
 """
 from __future__ import annotations
 
@@ -183,3 +192,26 @@ def _launch(q, k, v, causal):
         err = (_entry_sm90() if sm90 else _entry())(*ptrs, *args, stream)
     _build.check(err, "flash_fwd_sm90" if sm90 else "flash_fwd")
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward takes the tensor's route
+    (kernel or plain), the backward is autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        q, k, v = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) for t, w in zip((q, k, v), want)]
+            o = flash_attention_plain(*ins, causal=ctx.causal,
+                                      pv_bf16=q.dtype == torch.bfloat16)
+            got = iter(torch.autograd.grad(o, [t for t, w in zip(ins, want) if w],
+                                           grad_o))
+        return tuple(next(got) if w else None for w in want) + (None,)

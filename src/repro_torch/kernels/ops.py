@@ -6,10 +6,16 @@ the hand-written kernel, a CPU tensor to the kernel's plain version) or
 kernels with their plain versions on the card).
 
 The transposes below are views: the kernels take strides, so nothing is copied.
+
+With grad mode on and q, k or v requiring grad, ``mha_forward`` goes through
+``flash_attention.FlashAttentionFn``: the same forward, and a backward (autograd
+of the plain version). Without grad (serving) it calls the wrapper directly.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
@@ -30,6 +36,9 @@ def mha_forward(q, k, v, *, causal: bool = True, mode: Optional[str] = None):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if mode == "reference":
         o = _fa.flash_attention_plain(qt, kt, vt, causal=causal)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        o = _fa.FlashAttentionFn.apply(qt, kt, vt, causal)
     else:
         o = _fa.flash_attention(qt, kt, vt, causal=causal)
     return o.transpose(1, 2)

@@ -1,0 +1,128 @@
+"""Training launcher: state init on the card, checkpoint/restart, straggler
+watchdog calibrated off the first step, preemption-signal save.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
+        --batch 8 --seq 64 --steps 20
+
+``--device`` defaults to ``cuda`` and a missing card is an error; ``--device
+cpu`` trains through the plain PyTorch path. The port runs on one device:
+``--dp`` and ``--tp`` other than 1 are refused (``parallel/`` is not ported).
+Before training it prints the simulator's attention prediction for the
+training workload on the H800 preset, where the JAX launcher prints its
+SimFA-TPU line (``core/tpu/`` is not ported).
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import time
+
+import torch
+
+from repro_torch.ckpt.manager import CheckpointManager
+from repro_torch.configs import registry
+from repro_torch.configs.llama3 import AttnWorkload
+from repro_torch.core import analytical
+from repro_torch.core.machine import H800
+from repro_torch.data.synthetic import DataIterator
+from repro_torch.models import api
+from repro_torch.serve.engine import StragglerPolicy
+from repro_torch.train import optimizer as opt
+from repro_torch.train import trainer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-trainable)")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="results/train_launch_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def attention_prediction(cfg, batch: int, seq: int) -> str:
+    """The analytical model's causal FA3 forward for one layer of the training
+    workload, on the H800 preset, as one line of text."""
+    w = AttnWorkload(name="train", B=batch, L=seq, S=seq,
+                     H_kv=cfg.num_kv_heads or 4, G=cfg.q_group_size or 1,
+                     D=cfg.head_dim, causal=True)
+    gpu = analytical.analyze(w, H800, kernel="fa3")
+    return (f"SimFA-H800 attention prediction: {gpu.latency*1e6:.1f} us/layer "
+            f"({gpu.bottleneck}-bound) — watchdog calibrates off step 1")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.dp != 1 or args.tp != 1:
+        raise NotImplementedError(
+            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
+            "parallel/ (meshes, sharding) is not ported to repro_torch yet")
+
+    device = api.resolve_device(args.device)
+    cfg = registry.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    print(f"device {device}; arch {cfg.name} "
+          f"({cfg.param_count()/1e6:.1f}M params analytic)")
+
+    run = trainer.RunConfig(
+        microbatches=args.microbatches, remat=args.remat,
+        opt=opt.OptConfig(lr=args.lr, warmup_steps=10,
+                          total_steps=args.steps, schedule=cfg.lr_schedule))
+    state = trainer.init_state(cfg, run, 0, device=device)
+
+    ckpt = CheckpointManager(args.ckpt_dir, keep_last=2)
+    start = 0
+    if ckpt.latest_step() is not None:
+        start, state = ckpt.restore_latest(state)
+        print(f"[restart] resumed from step {start}")
+
+    # straggler deadline: the first step's time (set below) times the factor;
+    # the simulator's prediction is printed beside it
+    watchdog = StragglerPolicy(expected_step_s=1.0, factor=5.0)
+    print(attention_prediction(cfg, args.batch, args.seq))
+
+    step_fn = trainer.make_train_step(cfg, run)
+    data = DataIterator(cfg, batch=args.batch, seq=args.seq, start_step=start)
+
+    # preemption: SIGTERM triggers a final checkpoint before exit
+    preempted = {"flag": False}
+    signal.signal(signal.SIGTERM, lambda *a: preempted.__setitem__("flag", True))
+
+    for step in range(start, args.steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+        t0 = time.time()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])             # waits for the step
+        dt = time.time() - t0
+        if step == start:
+            watchdog.expected_step_s = dt          # calibrate
+        slow = watchdog.observe(dt)
+        print(f"step {step+1:4d} loss={loss:.4f} "
+              f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms"
+              + ("  [STRAGGLER]" if slow else ""), flush=True)
+        if (step + 1) % args.ckpt_every == 0 or preempted["flag"]:
+            ckpt.save(step + 1, state)
+        if preempted["flag"]:
+            ckpt.wait()
+            print("[preempt] checkpoint published; exiting")
+            return 17
+    ckpt.wait()
+    ckpt.save(args.steps, state, blocking=True)
+    print(f"done: {args.steps} steps; {watchdog.slow_steps} straggler "
+          f"step(s); checkpoints in {args.ckpt_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,7 @@
-"""Family-dispatching model facade used by the serve and launch layers.
+"""Family-dispatching model facade used by the train, serve and launch layers.
 
 Batch contract (all tensors):
+  train:   {"tokens": (B,S_tok), "labels": (B,S_tok), ["embeds"]}
   prefill: {"tokens": (B,S_tok), ["embeds"]}
   decode:  {"tokens": (B,1)} + cache
 
@@ -60,6 +61,14 @@ def forward_hidden(cfg, params, batch: Dict[str, Any], *, attn_fn=None,
 def unembed(cfg, params, hidden):
     _require_lm(cfg)
     return transformer.unembed(cfg, params, hidden)
+
+
+def unembed_table(cfg, params):
+    """(d, V) matrix used by the chunked loss."""
+    _require_lm(cfg)
+    if cfg.tie_embeddings:
+        return params["emb"]["table"].T
+    return params["unembed"]["w"]
 
 
 def prefill(cfg, params, batch, *, max_seq=None, remat: str = "full",

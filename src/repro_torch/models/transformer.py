@@ -1,10 +1,12 @@
 """LM-family model assembly. This slice of the port holds the dense family.
 
 Blocks are a Python list of per-layer parameter dicts and the stacks are Python
-loops over it. The other families (moe, vlm, hybrid, ssm) are not ported yet and
-raise ``NotImplementedError`` naming the family.
+loops over it. Under grad, ``remat`` names how each block is checkpointed for
+the backward pass (``REMAT_POLICIES``, as in the reference). The other
+families (moe, vlm, hybrid, ssm) are not ported yet and raise
+``NotImplementedError`` naming the family.
 
-Public API (used by serve/ and launch/):
+Public API (used by train/, serve/ and launch/):
     init_lm(cfg, gen)                       -> params
     cast_params(cfg, params)                -> params with matmul weights cast once
     apply_lm(cfg, params, tokens, ...)      -> (hidden, aux, kvs|None)
@@ -20,14 +22,30 @@ returns is the one it was given.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, layers
 
 PORTED_FAMILIES = ("dense",)
 _NORM_KEYS = ("attn_norm", "mlp_norm", "final_norm")
+
+# the counterparts of the reference's jax.checkpoint policies: which outputs of
+# a block's forward are kept for the backward pass ("full" keeps none and runs
+# the block again; "dots" keeps every matmul's output, "dots_no_batch" those
+# of the matmuls without batch dims)
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_MATMULS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": _MATMULS + _BATCHED_MATMULS,
+    "dots_no_batch": _MATMULS,
+}
 
 
 def _require_ported(cfg):
@@ -65,6 +83,26 @@ def _block_apply(p, x, cfg, *, positions, kv=None, cache_index=None,
     h = layers.apply_mlp(cfg.mlp, p["mlp"], h,
                          dtype=layers.to_dtype(cfg.compute_dtype))
     return x + h, new_kv, 0.0
+
+
+def _checkpointed(fn, remat):
+    """``fn`` under the checkpointing that ``remat`` names; ``fn`` itself
+    without grad (serving), where no backward pass will run."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; known: {sorted(REMAT_POLICIES)}")
+    keep = REMAT_POLICIES[remat]
+    if keep is None or not torch.is_grad_enabled():
+        return fn
+    if not keep:
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda *a: checkpoint(
+        fn, *a, use_reentrant=False,
+        context_fn=partial(create_selective_checkpoint_contexts, policy))
 
 
 # ---------------------------------------------------------------------------
@@ -132,19 +170,21 @@ def _embed_inputs(cfg, params, tokens, embeds):
 
 def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
              remat: str = "full", collect_kv: bool = False, mode=None):
-    """Prefill forward. Returns (hidden, aux, kv list|None).
+    """Training / prefill forward. Returns (hidden, aux, kv list|None).
 
-    ``remat`` is accepted and ignored: there is no backward in this port yet.
+    ``remat`` (a key of ``REMAT_POLICIES``) applies when grad mode is on: each
+    block then runs under ``torch.utils.checkpoint``.
     """
     _require_ported(cfg)
     x = _embed_inputs(cfg, params, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    block = _checkpointed(partial(_block_apply, cfg=cfg, positions=positions,
+                                  attn_fn=attn_fn, mode=mode), remat)
     aux = 0.0
     kvs = [] if collect_kv else None
     for blk in params["blocks"]:
-        x, kv, a = _block_apply(blk, x, cfg, positions=positions,
-                                attn_fn=attn_fn, mode=mode)
+        x, kv, a = block(blk, x)
         aux = aux + a
         if collect_kv:
             kvs.append(kv)

@@ -1,0 +1,89 @@
+"""Loss: chunked-vocab cross entropy.
+
+The (T, V) logits matrix is never materialized for the whole batch: the final
+projection and log-sum-exp run per token chunk, and each chunk's body runs
+under ``torch.utils.checkpoint``, so its logits are dropped after the forward
+and made again in the backward pass. The peak stays at (chunk, V), as the
+reference's ``jax.checkpoint``-ed scan body keeps it.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def _mm_f32(a, b):
+    """a @ b of bf16 operands with fp32 products, sums and result."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LogitsMatmul(torch.autograd.Function):
+    """``hidden @ w_unembed`` from bf16 operands, with the reference's roundings.
+
+    The reference writes ``(h.astype(bf16) @ w.astype(bf16)).astype(f32)``, and
+    XLA folds the widening convert into the dot, so the logits it computes are
+    never rounded to bf16 (the products are summed and kept in fp32, as the
+    MXU gives them); the same holds for the gradient of ``h``, while the
+    gradient of ``w`` comes out rounded to bf16 (observed on XLA's CPU backend,
+    which the parity tests run). This function does that arithmetic: with the
+    logits rounded to bf16, as the source reads, the step-1 gradients miss the
+    reference's by more than the 1e-4 that ``tests/test_torch_train.py`` holds
+    them to.
+    """
+
+    @staticmethod
+    def forward(ctx, h, w):
+        hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(hb, wb)
+        ctx.dtypes = (h.dtype, w.dtype)
+        return _mm_f32(hb, wb)
+
+    @staticmethod
+    def backward(ctx, grad):
+        hb, wb = ctx.saved_tensors
+        gb = grad.to(torch.bfloat16)
+        dh = _mm_f32(gb, wb.T).to(ctx.dtypes[0]) if ctx.needs_input_grad[0] else None
+        dw = (_mm_f32(hb.T, gb).to(torch.bfloat16).to(ctx.dtypes[1])
+              if ctx.needs_input_grad[1] else None)
+        return dh, dw
+
+
+def _chunk_nll(hx, w_unembed, yx, ignore_index: int):
+    """Summed NLL and weight of one chunk: bf16 logits matmul, fp32 log-sum-exp."""
+    logits = _LogitsMatmul.apply(hx, w_unembed)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, yx.clamp(min=0).long()[:, None])[:, 0]
+    valid = (yx != ignore_index).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
+                          ignore_index: int = -1):
+    """hidden: (B,S,d); w_unembed: (d,V); labels: (B,S) integers.
+
+    Returns (mean_nll over non-ignored, total_weight), both fp32 0-d tensors.
+    """
+    B, S, d = hidden.shape
+    T = B * S
+    h = hidden.reshape(T, d)
+    y = labels.reshape(T)
+    chunk = min(chunk, T)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=ignore_index)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, n * chunk, chunk):
+        args = (h[c0:c0 + chunk], w_unembed, y[c0:c0 + chunk], ignore_index)
+        if torch.is_grad_enabled():
+            nll, w = checkpoint(_chunk_nll, *args, use_reentrant=False)
+        else:
+            nll, w = _chunk_nll(*args)
+        loss_sum = loss_sum + nll
+        w_sum = w_sum + w
+    return loss_sum / torch.clamp(w_sum, min=1.0), w_sum

@@ -94,7 +94,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.core.simfa", "repro_torch.core.engine",
                 "repro_torch.core.kprog.registry", "repro_torch.analysis.dag",
-                "repro_torch.obs.counters", "repro_torch.faults.watchdog"}
+                "repro_torch.obs.counters", "repro_torch.faults.watchdog",
+                "repro_torch.tree", "repro_torch.train.loss", "repro_torch.train.optimizer",
+                "repro_torch.train.trainer", "repro_torch.data.synthetic",
+                "repro_torch.ckpt.manager", "repro_torch.launch.train"}
         missing = need - set(names)
         assert not missing, missing
         bad = [m for m in sys.modules

@@ -2,7 +2,9 @@
 
 ``repro_torch.{core,obs,analysis,faults,utils}`` is a copy of the JAX
 package's jax-free simulator (``core/tpu/`` excepted) with ``repro.`` read
-as ``repro_torch.``. Two kinds of check hold it there:
+as ``repro_torch.``; ``repro_torch.data.synthetic`` (the numpy-only data
+pipeline of the training path) is a verbatim copy held by the same drift
+check. Two kinds of check hold them there:
 
 * parity: the same workloads through ``repro.core`` and ``repro_torch.core``
   give equal results, exactly (the engine counts integers and both copies
@@ -55,8 +57,9 @@ DEVIATIONS = {
 
 
 def copied_modules():
-    """Every module of the reference's simulator that the port holds a copy of."""
-    names = ["utils/ioutil.py"]
+    """Every module of the reference's simulator that the port holds a copy of,
+    and the data pipeline."""
+    names = ["utils/ioutil.py", "data/synthetic.py"]
     for pkg in ("obs", "analysis", "faults", "core", "core/kprog"):
         names += sorted(p.relative_to(REF).as_posix() for p in (REF / pkg).glob("*.py"))
     return names
@@ -78,9 +81,9 @@ def test_copy_matches_reference_source(module):
 def test_no_tpu_model_and_nothing_uncopied():
     assert not (PORT / "core" / "tpu").exists()
     held = {p.relative_to(PORT).as_posix()
-            for pkg in ("obs", "analysis", "faults", "core", "core/kprog", "utils")
+            for pkg in ("obs", "analysis", "faults", "core", "core/kprog", "utils", "data")
             for p in (PORT / pkg).glob("*.py")}
-    assert held == set(copied_modules()) | {"utils/__init__.py"}
+    assert held == set(copied_modules()) | {"utils/__init__.py", "data/__init__.py"}
 
 
 def test_subsystem_breakdown_names_the_copys_layers():

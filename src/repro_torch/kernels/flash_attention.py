@@ -35,8 +35,9 @@ nothing else moves them.
 ``FlashAttentionFn`` makes the forward differentiable. Its forward is
 ``flash_attention`` (the kernel on a CUDA tensor, the plain version on a CPU
 one); its backward recomputes ``flash_attention_plain`` from the saved q, k and
-v under autograd (with ``pv_bf16`` for bf16, as the bf16 kernel rounds P) and
-returns the gradient of that. The backward is plain PyTorch on purpose: the
+v under autograd and returns the gradient of that. The recompute rounds P as
+the forward did: with ``pv_bf16`` for a bf16 CUDA tensor (the bf16 kernel
+rounds P), in fp32 for every other (the plain forward keeps P fp32). The backward is plain PyTorch on purpose: the
 JAX package has no backward kernel either, its gradient is XLA's autodiff of
 the jnp ``flash_ref``. Under ``torch.utils.checkpoint`` the forward runs again
 in the backward pass, and that launch is counted like any other.
@@ -211,7 +212,7 @@ class FlashAttentionFn(torch.autograd.Function):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(w) for t, w in zip((q, k, v), want)]
             o = flash_attention_plain(*ins, causal=ctx.causal,
-                                      pv_bf16=q.dtype == torch.bfloat16)
+                                      pv_bf16=q.dtype == torch.bfloat16 and q.is_cuda)
             got = iter(torch.autograd.grad(o, [t for t, w in zip(ins, want) if w],
                                            grad_o))
         return tuple(next(got) if w else None for w in want) + (None,)

@@ -8,6 +8,7 @@ cached decode to ``decode_forward``.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
@@ -79,6 +80,29 @@ def flash_ref(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 512,
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, L, H, D).to(q.dtype)
+
+
+def knob_attention(chunk: int, pv_bf16: bool, *, device, dtype, mode=None):
+    """The self-attention that the ``attn_chunk`` / ``attn_pv_bf16`` knobs ask
+    for, as an ``attn_fn``: None means ``ops.mha_forward`` (the kernel route).
+
+    At the defaults (chunk 512, P kept fp32) that is always the kernel route.
+    Otherwise, on a CPU tensor or under ``mode="reference"`` (the plain route
+    either way), ``flash_ref`` with those arguments, as the reference maps the
+    knobs. On a CUDA tensor nothing falls back to the plain version: ``pv_bf16``
+    at chunk 512 with bf16 compute takes the kernel, which rounds P to bf16 so
+    already, and any other setting raises.
+    """
+    if chunk == 512 and not pv_bf16:
+        return None
+    if torch.device(device).type == "cpu" or mode == "reference":
+        return partial(flash_ref, chunk=chunk, pv_bf16=pv_bf16)
+    if chunk == 512 and dtype == torch.bfloat16:
+        return None
+    raise NotImplementedError(
+        f"attn_chunk={chunk}, attn_pv_bf16={pv_bf16} with {dtype} compute has no "
+        "kernel on the card: the bf16 forward kernel takes pv_bf16 at chunk 512, the "
+        "fp32 one keeps P fp32 (mode='reference' runs the plain flash_ref)")
 
 
 def decode_attend(q, k_cache, v_cache, cache_len, *, q_offset=None):

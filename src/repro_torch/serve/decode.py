@@ -5,11 +5,11 @@ sequence against a resident KV cache.
 """
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
 from repro_torch.models import api
+from repro_torch.models.attention import knob_attention
+from repro_torch.models.layers import to_dtype
 
 
 def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
@@ -19,10 +19,8 @@ def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
     def prefill_step(params, batch):
         if cast_params != "none":
             params = api.cast_params(cfg, params, cast_params)
-        attn_fn = None
-        if attn_chunk != 512 or attn_pv_bf16:
-            from repro_torch.models.attention import flash_ref
-            attn_fn = partial(flash_ref, chunk=attn_chunk, pv_bf16=attn_pv_bf16)
+        attn_fn = knob_attention(attn_chunk, attn_pv_bf16, device=batch["tokens"].device,
+                                 dtype=to_dtype(cfg.compute_dtype), mode=mode)
         hidden, cache = api.prefill(cfg, params, batch, max_seq=max_seq,
                                     remat=remat, attn_fn=attn_fn, mode=mode)
         logits = api.unembed(cfg, params, hidden[:, -1:])

@@ -11,19 +11,19 @@ tensors: reading one waits for the card.
 
 The reference's ``grad_specs`` (the gradient accumulator's sharding) has no
 counterpart: one card has nothing to shard. Only the dense family is ported;
-``init_state`` and ``make_loss_fn`` raise for the others.
+``init_state`` and ``make_loss_fn`` raise for the others, and the reference's
+MoE fields (``moe_impl``, ``moe_aux_weight``) are not in ``RunConfig``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 from typing import NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch import tree
 from repro_torch.models import api, layers, transformer
-from repro_torch.models.attention import flash_ref
+from repro_torch.models.attention import knob_attention
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy
 
@@ -32,16 +32,14 @@ from repro_torch.train.loss import chunked_cross_entropy
 class RunConfig:
     microbatches: int = 1
     remat: str = "full"
-    moe_impl: str = "einsum"           # kept for the reference's signature;
-                                       # the moe family is not ported
-    moe_aux_weight: float = 0.01
     loss_chunk: int = 2048
     grad_dtype: str = "float32"        # gradient accumulator dtype
     grad_compress: str = "none"        # none | int8 (error-feedback)
     cast_params: str = "none"          # none | bfloat16: fwd/bwd compute
                                        # params (fp32 masters kept in state)
     attn_chunk: int = 512              # flash_ref KV chunk (§Perf knob)
-    attn_pv_bf16: bool = False         # FA3-style P-tile cast (§Perf knob)
+    attn_pv_bf16: bool = False         # FA3-style P-tile cast (§Perf knob);
+                                       # attention.knob_attention maps both
     opt: opt.OptConfig = opt.OptConfig()
 
 
@@ -78,10 +76,11 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
     """loss_fn(params, mb) -> (total, {"loss", "aux"}). ``mode`` is handed to
     ``kernels.ops`` (``"reference"`` forces the plain attention)."""
     transformer._require_ported(cfg)
-    attn_fn = (None if run.attn_chunk == 512 and not run.attn_pv_bf16
-               else partial(flash_ref, chunk=run.attn_chunk, pv_bf16=run.attn_pv_bf16))
 
     def loss_fn(params, mb):
+        attn_fn = knob_attention(run.attn_chunk, run.attn_pv_bf16,
+                                 device=mb["labels"].device,
+                                 dtype=layers.to_dtype(cfg.compute_dtype), mode=mode)
         if run.cast_params != "none":
             cdt = layers.to_dtype(run.cast_params)
             params = tree.map_leaves(
@@ -92,8 +91,10 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
         loss, _ = chunked_cross_entropy(
             hidden[:, -s_tok:], api.unembed_table(cfg, params), mb["labels"],
             chunk=run.loss_chunk)
+        # the dense family's aux loss is 0; its weight (the reference's
+        # moe_aux_weight) comes with the moe family
         aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
-        return loss + run.moe_aux_weight * aux, {"loss": loss, "aux": aux}
+        return loss, {"loss": loss, "aux": aux}
     return loss_fn
 
 

@@ -26,6 +26,7 @@ from repro_torch import compat, tree
 from repro_torch.configs import registry as tregistry
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
 from repro_torch.train import loss as tloss
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttrainer
@@ -257,6 +258,61 @@ def test_flash_attention_fn_backward_matches_jax_flash_ref(causal, G, D):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32_ATTN)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4])
+def test_flash_attention_fn_backward_bf16_on_the_cpu_matches_jax_flash_ref(causal, G):
+    """bf16 on the CPU: the forward is the plain version with P kept fp32, so the
+    backward must differentiate that function (P is rounded to bf16 only on the
+    card, where the kernel rounds it), as ``jax.grad`` of ``flash_ref`` does.
+    Both sides round the inputs, the output, the incoming gradient and the
+    returned gradients to bf16 at the same places and differ only where fp32
+    summation order flips a rounding: within 5e-4 in norm (rounding P in the
+    backward as well gives about 3e-3), and within the bf16 tolerance 2e-2
+    elementwise."""
+    B, Hkv, L, D = 2, 2, 24, 64
+    S = L if causal else 40
+    rng = np.random.default_rng(G * 10 + causal)
+    q, k, v = (rng.standard_normal(s, dtype=np.float32)
+               for s in ((B, L, Hkv * G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    r = rng.standard_normal((B, L, Hkv * G, D), dtype=np.float32)
+    want = jax.grad(
+        lambda a, b, c: jnp.sum(jattn.flash_ref(a, b, c, causal=causal).astype(jnp.float32) * r),
+        argnums=(0, 1, 2))(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)))
+    ins = [torch.from_numpy(a).bfloat16().requires_grad_(True) for a in (q, k, v)]
+    o = tops.mha_forward(*ins, causal=causal)
+    got = torch.autograd.grad((o.float() * torch.from_numpy(r)).sum(), ins)
+    for a, b in zip(got, want):
+        a, b = a.float().numpy(), np.asarray(b.astype(jnp.float32))
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 5e-4
+        np.testing.assert_allclose(a, b, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("chunk,pv_bf16,device,dtype,mode,route", [
+    (512, False, "cuda", torch.float32, None, "kernel"),
+    (512, True, "cuda", torch.bfloat16, None, "kernel"),     # the bf16 kernel rounds P
+    (512, True, "cuda", torch.float32, None, "refused"),     # the fp32 kernel keeps P fp32
+    (128, False, "cuda", torch.bfloat16, None, "refused"),
+    (128, True, "cuda", torch.bfloat16, "reference", "flash_ref"),
+    (8, True, "cpu", torch.bfloat16, None, "flash_ref"),
+    (8, False, "cpu", torch.float32, None, "flash_ref"),
+])
+def test_attention_knobs_take_the_kernel_or_are_refused_on_the_card(
+        chunk, pv_bf16, device, dtype, mode, route):
+    """``attn_chunk`` / ``attn_pv_bf16`` map to ``flash_ref`` on the CPU and under
+    mode="reference", as in the reference; on the card they never leave the
+    kernel for the plain version."""
+    if route == "refused":
+        with pytest.raises(NotImplementedError, match="no kernel on the card"):
+            tattn.knob_attention(chunk, pv_bf16, device=device, dtype=dtype, mode=mode)
+        return
+    fn = tattn.knob_attention(chunk, pv_bf16, device=device, dtype=dtype, mode=mode)
+    if route == "kernel":
+        assert fn is None
+    else:
+        assert fn.func is tattn.flash_ref
+        assert fn.keywords == {"chunk": chunk, "pv_bf16": pv_bf16}
+
+
 def _through_the_function(o):
     """Whether ``o``'s graph reaches FlashAttentionFn's backward."""
     seen, todo = set(), [o.grad_fn]
@@ -425,3 +481,6 @@ def test_flash_attention_fn_grads_through_the_kernels_on_the_card():
     for g, want in zip(grads[None], grads["reference"]):
         assert float(g.norm()) > 0
         assert float((g - want).norm() / want.norm()) < 2e-2
+    # a knob the kernels do not take is refused on the card, not run plain
+    with pytest.raises(NotImplementedError, match="no kernel on the card"):
+        ttrainer.make_loss_fn(ct, ttrainer.RunConfig(attn_chunk=8))(params, batch)

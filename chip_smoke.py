@@ -29,6 +29,18 @@ Phases, each printing one JSON line:
   path_f32 the model in float32 at 2 layers: the engine's prefills go through
            the fp32 kernel (launch counts asserted), and first-step logits
            match mode="reference" at 1e-3
+  moe      dbrx-132b at full width (48 query / 8 KV heads, G = 6; 16 experts
+           top-4), its depth cut to 2 layers, bf16, random seeded weights:
+           8 requests of 512 prompt tokens through ServeEngine (4 slots, 16 new
+           tokens each); asserts both bf16 kernels' launch counts, prints the
+           share of decode's (token, choice) pairs dropped at capacity; then one
+           prompt through the kernels, through mode="reference" and through the
+           plain route that rounds P to bf16 as the bf16 forward does: the
+           chosen experts must agree with both (ROUTING_AGREEMENT), and the last
+           prefill position's and first decode step's logits must lie within
+           LOGITS_TOL of the bf16-P route's where that position's routing
+           agreed in both layers (against fp32 P they are a reading: rounding P
+           alone moves them as far, see moe_check)
   train    olmo-1b at full width and depth, bf16 compute on fp32 master weights:
            5 AdamW steps of batch 4 x 512 tokens (remat "full"); the attention
            gradients through the kernel route against mode="reference" at the
@@ -49,6 +61,7 @@ Needs a CUDA device and nvcc; imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -70,7 +83,8 @@ from repro_torch.core.simfa import simulate_fa3               # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
-from repro_torch.models import api                            # noqa: E402
+from repro_torch.models import api, moe                       # noqa: E402
+from repro_torch.models.attention import knob_attention       # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
 from repro_torch.data.synthetic import DataIterator           # noqa: E402
 from repro_torch.train import optimizer as opt                # noqa: E402
@@ -97,6 +111,7 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 16, 2, 1024, 1024, 64),
     (2, 32, 8, 2048, 2048, 128),
     (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
+    (1, 48, 8, 512, 512, 128),     # dbrx-132b's prefill, G = 6
 ]
 FWD_ODD = [  # fp32 only, causal: the pairing of 32-row tiles in flash_fwd.cu
     (1, 4, 1, 80, 80, 112),        # 3 row tiles: the middle one alone, ragged rows
@@ -117,6 +132,7 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (1, 4, 2, 64, 16, 13),         # the launcher's default (reduced) width
     (4, 16, 2, 1024, 128, 1),      # one cached row
     (1, 16, 2, 32768, 128, 32768), # the longest context of qwen2.5-3b
+    (4, 48, 8, 1024, 128, 520),    # dbrx-132b's decode step, G = 6
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -126,6 +142,10 @@ TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
 TRAIN_TOL = 1e-3       # step 1's loss and grad-norm, kernels against mode="reference", relative
 WGRAD_TOL = 4e-2       # wq/wk/wv grads, kernels against the plain bf16-P route, relative in
                        # norm: twice the largest reading (1.92e-2, layer 0 wq)
+MOE = dict(arch="dbrx-132b", layers=2, requests=8, prompt_len=512, slots=4, max_new=16,
+           max_seq=1024)
+ROUTING_AGREEMENT = 0.99   # share of the kernels' (token, layer, choice) experts a plain route
+                           # chooses too
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
 LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
@@ -619,15 +639,21 @@ def drive(eng, reqs):
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
 
+    # the wrapper holds a bound method of the engine: removed again at the end,
+    # or the engine, its weights and cache would live on in a reference cycle
+    # until the garbage collector runs
     eng._prefill_slot = timed_prefill
-    for r in reqs:
-        eng.submit(r)
-    while eng.queue or any(eng.active):
-        before = sum(prefill_ms)
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - t0) * 1e3 - (sum(prefill_ms) - before))
+    try:
+        for r in reqs:
+            eng.submit(r)
+        while eng.queue or any(eng.active):
+            before = sum(prefill_ms)
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3 - (sum(prefill_ms) - before))
+    finally:
+        del eng._prefill_slot
     return prefill_ms, decode_ms
 
 
@@ -744,6 +770,180 @@ def phase_path_f32(kernels):
         raise AssertionError(f"fp32 path check: logits differ, max abs err {float(err.max()):.3e}")
     emit({"phase": "path_f32", "layers": L, "launches": counts, "decode_steps": eng.steps,
           "logits_tolerance": LOGITS_TOL_F32, "prefill_logits_max_abs_err": float(err.max())})
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The experts ``moe._route`` chooses while the block runs: one (T, k) index
+    tensor a call, in call order (a layer's prefill or decode step)."""
+    seen, route = [], moe._route
+
+    def recording(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        seen.append(out[1])
+        return out
+
+    moe._route = recording
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+def dropped(idx, cfg, group):
+    """Which (token, choice) pairs of ``idx`` (T, k) find their expert's queue
+    full in the einsum dispatch, tokens taken in groups of ``group``."""
+    k, E = cfg.experts_per_token, cfg.num_experts
+    cap = max(1, int(group * k / E * cfg.capacity_factor))
+    flat = idx.reshape(-1, group * k)
+    pos = torch.cumsum(torch.nn.functional.one_hot(flat, E), dim=1) - 1
+    return (pos.gather(2, flat[..., None]) >= cap).reshape(idx.shape)
+
+
+def moe_route(cfg, params, toks, max_seq, mode=None, attn_fn=None):
+    """One prompt's prefill and first decode step through one attention route:
+    (last prefill position's logits, first decode step's logits), and the
+    experts each layer chose in the prefill and in the decode step."""
+    with recorded_routes() as seen, torch.no_grad():
+        hidden, cache = api.prefill(cfg, params, {"tokens": toks}, max_seq=max_seq, mode=mode,
+                                    attn_fn=attn_fn)
+        first, _ = api.decode(cfg, params, cache, toks[:, -1:], mode=mode)
+        logits = (api.unembed(cfg, params, hidden[:, -1:]).float(), first.float())
+    L = cfg.num_layers
+    if len(seen) != 2 * L:
+        raise AssertionError(f"moe check: {len(seen)} routings, want {2 * L}")
+    return logits, seen[:L], seen[L:]
+
+
+def compare_routes(cfg, ours, ref, prompt_len):
+    """The share of (token, layer, choice) experts of ``ours`` that ``ref`` chose
+    too, and each logits vector's max abs error and its worst ratio to
+    LOGITS_TOL where that position's routing (chosen and kept experts) agreed
+    in every layer (None where it did not)."""
+    (lg, pre, dec), (lg_ref, pre_ref, dec_ref) = ours, ref
+    a, b = torch.cat(pre + dec), torch.cat(pre_ref + dec_ref)
+    out = {"routing_agreement": float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())}
+
+    def routing(idx, group):
+        """(chosen, kept) expert sets of the last token of ``idx``."""
+        chosen, drop = idx[-1].tolist(), dropped(idx, cfg, group)[-1].tolist()
+        return set(chosen), {e for e, d in zip(chosen, drop) if not d}
+
+    for what, j, x, y, group in (("prefill_last", 0, pre, pre_ref, prompt_len),
+                                 ("decode_first", 1, dec, dec_ref, 1)):
+        got, want = lg[j], lg_ref[j]
+        if got.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+            raise AssertionError(f"moe check {what}: logits shape {tuple(got.shape)} "
+                                 "or values are off")
+        if any(routing(u, group) != routing(v, group) for u, v in zip(x, y)):
+            out[what] = None
+            continue
+        err = (got - want).abs()
+        out[what] = {"max_abs_err": float(err.max()),
+                     "worst_ratio_to_tol": float((err / (LOGITS_TOL + LOGITS_TOL * want.abs()))
+                                                 .max())}
+    return out
+
+
+def moe_check(cfg, params, prompt_len, max_seq):
+    """One prompt through the kernels, through mode="reference" (fp32 P) and through
+    the plain route that rounds P to bf16 over 128-key tiles as the bf16 forward
+    kernel does. Routing agreement with both plain routes must reach
+    ROUTING_AGREEMENT; the logits must lie within LOGITS_TOL of the bf16-P route's
+    where that position's routing agreed. Against fp32 P the logits are a reading
+    beside the witness: the two plain routes against each other, which differ by
+    rounding P alone."""
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, prompt_len))).to(DEV)
+    bf16_p = knob_attention(fa.DEFAULT_BLOCK_K, True, device=DEV, dtype=torch.bfloat16,
+                            mode="reference")
+    kernel = moe_route(cfg, params, toks, max_seq)
+    plain = moe_route(cfg, params, toks, max_seq, mode="reference")
+    plain_bf16_p = moe_route(cfg, params, toks, max_seq, mode="reference", attn_fn=bf16_p)
+    result = {"routing_agreement_min": ROUTING_AGREEMENT, "logits_tolerance": LOGITS_TOL,
+              "kernel_vs_plain_bf16_p": compare_routes(cfg, kernel, plain_bf16_p, prompt_len),
+              "kernel_vs_plain_fp32_p": compare_routes(cfg, kernel, plain, prompt_len),
+              "plain_bf16_p_vs_plain_fp32_p": compare_routes(cfg, plain_bf16_p, plain,
+                                                             prompt_len)}
+    for pair in ("kernel_vs_plain_bf16_p", "kernel_vs_plain_fp32_p"):
+        if result[pair]["routing_agreement"] < ROUTING_AGREEMENT:
+            raise AssertionError(f"moe check {pair}: routing agreement "
+                                 f"{result[pair]['routing_agreement']:.4f} < "
+                                 f"{ROUTING_AGREEMENT}; {result}")
+    held = result["kernel_vs_plain_bf16_p"]
+    for what in ("prefill_last", "decode_first"):
+        if held[what] is None:
+            print(f"moe check {what}: the routing of its position differs from the bf16-P "
+                  "route's; its logits are not compared", flush=True)
+        elif held[what]["worst_ratio_to_tol"] > 1:
+            raise AssertionError(f"moe check {what}: logits beyond LOGITS_TOL of the plain "
+                                 f"bf16-P route; {result}")
+    return result
+
+
+def phase_moe(kernels):
+    """Full-width dbrx-132b, its depth cut to 2 layers, served through both bf16
+    kernels at G = 6 (see the module docstring)."""
+    m = MOE
+    base = registry.get(m["arch"])
+    cfg = dataclasses.replace(base, num_layers=m["layers"])
+    n_req, prompt_len, slots, max_new, max_seq = (m[k] for k in (
+        "requests", "prompt_len", "slots", "max_new", "max_seq"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init(cfg, 0, device=DEV)
+    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, device=DEV)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    reqs = make_requests(cfg, n_req, prompt_len, max_new, seed=5)
+
+    reset_counts()
+    with recorded_routes() as routes:
+        t0 = time.time()
+        prefill_ms, decode_ms = drive(eng, reqs)
+        wall = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.num_layers
+    if (counts["flash_fwd"] != n_req * L or fa.launches != counts["flash_fwd"]
+            or counts["flash_decode"] != eng.steps * L or eng.steps == 0
+            or fd.launches != counts["flash_decode"]):
+        raise AssertionError(f"moe: launches {counts} ({fa.launches} forward, {fd.launches} "
+                             f"decode in all); want {n_req} x {L} on the bf16 forward and "
+                             f"{eng.steps} x {L} on the bf16 decode, nothing else")
+    for r in reqs:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"moe: request {r.rid}: bad output {r.out}")
+    steps = [r for r in routes if r.shape[0] == slots]
+    if len(steps) != eng.steps * L or len(routes) != len(steps) + n_req * L:
+        raise AssertionError(f"moe: {len(routes)} routings, {len(steps)} of decode steps; want "
+                             f"{n_req} x {L} prefills and {eng.steps} x {L} steps")
+    drop_share = float(torch.cat([dropped(r, cfg, slots).reshape(-1) for r in steps])
+                       .float().mean())
+    for kern in kernels:
+        if kern["name"] in ("flash_fwd", "flash_decode"):
+            kern["launches_moe"] = counts[kern["name"]]
+    check = moe_check(cfg, eng.params, prompt_len, max_seq)
+    with torch.no_grad():           # two more decode steps of the 4 slots: untraced, traced
+        prof = profiled(lambda: api.decode(cfg, eng.params, eng.cache, eng.tokens),
+                        watch=("flash_decode_sm90",))
+    emit({"phase": "moe", "model": cfg.name, "layers": L, "published_layers": base.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "experts": cfg.num_experts, "experts_per_token": cfg.experts_per_token,
+          "capacity_factor": cfg.capacity_factor, "compute_dtype": cfg.compute_dtype,
+          "params": sum(p.numel() for p in tree.leaves(eng.params)),
+          "requests": n_req, "prompt_len": prompt_len, "slots": slots, "max_new": max_new,
+          "max_seq": max_seq, "init_seconds": round(init_s, 2), "decode_steps": eng.steps,
+          "launches": counts, "prefill_ms_per_request": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step_first": decode_ms[0], "tokens_per_s": n_req * max_new / wall,
+          "wall_seconds": wall, "peak_memory_gb": peak_gb,
+          "decode_dropped_choice_share": drop_share, "check": check,
+          "profile_decode_step": prof, "sample_tokens": reqs[0].out})
+    del eng
+    torch.cuda.empty_cache()
 
 
 def attention_grads(rng, shape, dtype):
@@ -998,7 +1198,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,sim,serve,path,path_f32,train")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,sim,serve,path,path_f32,moe,train")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1015,13 +1216,15 @@ def main(argv=None):
         phase_path()
     if "path_f32" in phases:
         phase_path_f32(kernels)
+    if "moe" in phases:
+        phase_moe(kernels)
     if "train" in phases:
         phase_train(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32",
-                                         "train"))
+                                         "moe", "train"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,12 +49,13 @@ def cast_params(cfg, params, dtype=None, device=None):
 
 
 def forward_hidden(cfg, params, batch: Dict[str, Any], *, attn_fn=None,
-                   remat: str = "full", mode=None):
-    """Forward to final hidden states. Returns (hidden, aux)."""
+                   remat: str = "full", moe_impl: str = "einsum", mode=None):
+    """Forward to final hidden states. Returns (hidden, aux): aux is the MoE
+    load-balance loss summed over the layers (0.0 for the other families)."""
     _require_lm(cfg)
     hidden, aux, _ = transformer.apply_lm(
         cfg, params, batch["tokens"], embeds=batch.get("embeds"),
-        attn_fn=attn_fn, remat=remat, mode=mode)
+        attn_fn=attn_fn, remat=remat, moe_impl=moe_impl, mode=mode)
     return hidden, aux
 
 

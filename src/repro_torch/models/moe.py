@@ -1,0 +1,139 @@
+"""Mixture-of-Experts block: top-k routing with capacity-bounded dispatch.
+
+Two interchangeable implementations (the same numbers where no tokens drop):
+
+* ``einsum`` — GShard-style one-hot dispatch/combine einsums over token
+  groups. Default.
+* ``scatter`` — cumsum positions and ``index_add`` into capacity buffers
+  (no one-hot dispatch FLOPs).
+
+Expert weights are stored ``(E, d, ff)`` / ``(E, ff, d)``; the expert products
+are batched matmuls over the expert dim. Routing is computed in fp32 from an
+fp32 router (``transformer.cast_params`` leaves it fp32). A token whose choice
+finds its expert's queue full is dropped for that choice (its slot is the extra
+column ``cap``, cut off before the experts run), as in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+
+def moe_init(gen: torch.Generator, cfg):
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": layers.truncated_normal(gen, (d, E), 0.02),
+        "wg": layers.truncated_normal(gen, (E, d, ff), 1.0 / math.sqrt(d)),
+        "wu": layers.truncated_normal(gen, (E, d, ff), 1.0 / math.sqrt(d)),
+        "wd": layers.truncated_normal(gen, (E, ff, d), 1.0 / math.sqrt(ff)),
+    }
+
+
+def _route(p, x2d, cfg):
+    """x2d: (T, d) -> (weights (T,k), experts (T,k), probs (T,E))."""
+    logits = x2d.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    return w.float(), idx, probs
+
+
+def aux_load_balance_loss(probs, idx, num_experts):
+    """Switch-style load-balance loss (mean fraction * mean prob * E)."""
+    counts = torch.bincount(idx.reshape(-1), minlength=num_experts).float()
+    frac = counts / max(idx.numel(), 1)
+    mean_prob = probs.mean(dim=0)
+    return num_experts * torch.sum(frac * mean_prob)
+
+
+def _expert_ffn(p, xin, cfg, dt):
+    """xin: (..., E, C, d) -> (..., E, C, d) through each expert's gated MLP."""
+    g = torch.einsum("...ecd,edf->...ecf", xin, p["wg"].to(dt))
+    u = torch.einsum("...ecd,edf->...ecf", xin, p["wu"].to(dt))
+    act = F.silu(g) if cfg.mlp == "swiglu" else layers._gelu(g)
+    return torch.einsum("...ecf,efd->...ecd", act * u, p["wd"].to(dt))
+
+
+def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
+    """x: (B, S, d) -> (y, aux_loss). One-hot grouped dispatch.
+
+    The B * S tokens are cut into groups of ``min(group_size, B * S)``; a token
+    count that is not a whole number of groups raises ``ValueError``.
+    """
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    dt = layers.to_dtype(cfg.compute_dtype)
+    T = B * S
+    g = min(group_size, T)
+    if T % g:
+        raise ValueError(f"moe einsum dispatch: {T} tokens (B={B} x S={S}) do not "
+                         f"split into groups of {g}")
+    n_grp = T // g
+    x2 = x.reshape(T, d)
+    w, idx, probs = _route(p, x2, cfg)
+    aux = aux_load_balance_loss(probs, idx, E)
+
+    cap = max(1, int(g * k / E * cfg.capacity_factor))
+    xg = x2.reshape(n_grp, g, d)
+    wg_ = w.reshape(n_grp, g, k)
+    ig = idx.reshape(n_grp, g, k)
+
+    # position of each (token, choice) within its expert queue, per group
+    onehot = F.one_hot(ig, E)                                   # (n,g,k,E)
+    pos = (torch.cumsum(onehot.reshape(n_grp, g * k, E), dim=1) - 1
+           ).reshape(n_grp, g, k, E)
+    in_cap = (pos < cap) & (onehot > 0)
+
+    # dispatch tensor (n, g, E, cap): 1 where token t goes to slot (e, c);
+    # unselected and overflowing (token, choice, expert) triples go to the
+    # dropped column cap, cut off here
+    slot = F.one_hot(torch.where(in_cap, pos, cap), cap + 1).to(dt)[..., :cap]
+    disp = slot.sum(dim=2)                                      # (n,g,E,cap)
+    comb = (slot * wg_[..., None, None].to(dt)).sum(dim=2)
+
+    xin = torch.einsum("ngec,ngd->necd", disp, xg.to(dt))       # (n,E,cap,d)
+    yout = _expert_ffn(p, xin, cfg, dt)                         # (n,E,cap,d)
+    y = torch.einsum("ngec,necd->ngd", comb, yout)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_apply_scatter(p, x, cfg):
+    """Dispatch without one-hot FLOPs: ``index_add`` into capacity buffers."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    dt = layers.to_dtype(cfg.compute_dtype)
+    T = B * S
+    x2 = x.reshape(T, d)
+    w, idx, probs = _route(p, x2, cfg)
+    aux = aux_load_balance_loss(probs, idx, E)
+
+    cap = max(1, int(T * k / E * cfg.capacity_factor))
+    flat_e = idx.reshape(-1)                                    # (T*k,)
+    rows = torch.arange(T * k, device=x.device)
+    pos = (torch.cumsum(F.one_hot(flat_e, E), dim=0) - 1)[rows, flat_e]
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, cap)                      # overflow slot
+
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    slot = flat_e * (cap + 1) + safe_pos
+    buf = torch.zeros((E * (cap + 1), d), dtype=dt, device=x.device).index_add(
+        0, slot, x2[tok].to(dt)).reshape(E, cap + 1, d)
+    yout = _expert_ffn(p, buf[:, :cap][None], cfg, dt)[0]       # (E,cap,d)
+    yout = torch.cat([yout, torch.zeros((E, 1, d), dtype=dt, device=x.device)], dim=1)
+    gathered = yout[flat_e, safe_pos]                           # (T*k, d)
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device).index_add(
+        0, tok, gathered.float() * w.reshape(-1)[:, None])
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_apply(p, x, cfg, *, impl: str = "einsum", group_size: int = 512):
+    if impl == "einsum":
+        return moe_apply_einsum(p, x, cfg, group_size=group_size)
+    if impl == "scatter":
+        return moe_apply_scatter(p, x, cfg)
+    raise ValueError(f"unknown moe impl {impl!r}; known: 'einsum', 'scatter'")

@@ -1,9 +1,11 @@
-"""LM-family model assembly. This slice of the port holds the dense family.
+"""LM-family model assembly: the dense, MoE and VLM families.
 
 Blocks are a Python list of per-layer parameter dicts and the stacks are Python
 loops over it. Under grad, ``remat`` names how each block is checkpointed for
-the backward pass (``REMAT_POLICIES``, as in the reference). The other
-families (moe, vlm, hybrid, ssm) are not ported yet and raise
+the backward pass (``REMAT_POLICIES``, as in the reference). A moe block runs
+``moe.moe_apply`` in place of the MLP and adds its load-balance loss to the
+stack's aux; a vlm model is the dense stack behind an ``embeds`` prefix. The
+other families (hybrid, ssm) are not ported yet and raise
 ``NotImplementedError`` naming the family.
 
 Public API (used by train/, serve/ and launch/):
@@ -29,10 +31,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
-PORTED_FAMILIES = ("dense",)
-_NORM_KEYS = ("attn_norm", "mlp_norm", "final_norm")
+PORTED_FAMILIES = ("dense", "moe", "vlm")
+# leaves that cast_params keeps fp32: the norm scales (apply_norm multiplies in
+# fp32) and the MoE router (moe._route computes the routing in fp32 from it)
+_FP32_KEYS = ("attn_norm", "mlp_norm", "final_norm", "router")
 
 # the counterparts of the reference's jax.checkpoint policies: which outputs of
 # a block's forward are kept for the backward pass ("full" keeps none and runs
@@ -61,22 +65,29 @@ def _require_ported(cfg):
 
 def _block_init(gen, cfg):
     dev = gen.device
-    return {
+    p = {
         "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
         "attn": attention.attn_init(gen, cfg),
         "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
-        "mlp": layers.mlp_init(gen, cfg.mlp, cfg.d_model, cfg.d_ff, bias=cfg.bias),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_init(gen, cfg)
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg.mlp, cfg.d_model, cfg.d_ff, bias=cfg.bias)
+    return p
 
 
 def _block_apply(p, x, cfg, *, positions, kv=None, cache_index=None,
-                 attn_fn=None, mode=None):
+                 attn_fn=None, mode=None, moe_impl="einsum"):
     h = layers.apply_norm(cfg.norm, p["attn_norm"], x)
     h, new_kv = attention.attn_apply(
         p["attn"], h, cfg, positions=positions, kv_cache=kv,
         cache_index=cache_index, attn_fn=attn_fn, mode=mode)
     x = x + h
     h = layers.apply_norm(cfg.norm, p["mlp_norm"], x)
+    if cfg.family == "moe":
+        h, aux = moe.moe_apply(p["moe"], h, cfg, impl=moe_impl)
+        return x + h, new_kv, aux
     # on purpose not as the reference, whose block runs the MLP at apply_mlp's
     # default type (bf16) whatever cfg.compute_dtype says: here it follows the
     # config. Every shipped config computes in bf16, where the two agree.
@@ -123,16 +134,18 @@ def init_lm(cfg, gen: torch.Generator):
 def cast_params(cfg, params, dtype=None, device=None):
     """Matmul weights, biases and the embedding table cast once to the compute type.
 
-    ``layers.dense`` casts its weight on every call; eagerly that would re-cast
-    every weight at every step. Cast once, the per-call cast is the identity and
-    the numbers are the same. Norm scales stay fp32 (``apply_norm`` multiplies
-    in fp32). With ``device`` every leaf is also moved there.
+    ``layers.dense`` (and the MoE expert products) cast their weights on every
+    call; eagerly that would re-cast every weight at every step. Cast once, the
+    per-call cast is the identity and the numbers are the same. The leaves under
+    ``_FP32_KEYS`` stay fp32: the norm scales (``apply_norm`` multiplies in fp32)
+    and the MoE router (routing is computed in fp32 from it; rounded, it would
+    choose other experts). With ``device`` every leaf is also moved there.
     """
     dt = layers.to_dtype(dtype or cfg.compute_dtype)
 
     def walk(node, to):
         if isinstance(node, dict):
-            return {k: walk(v, None if k in _NORM_KEYS else to)
+            return {k: walk(v, None if k in _FP32_KEYS else to)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, to) for v in node]
@@ -169,8 +182,10 @@ def _embed_inputs(cfg, params, tokens, embeds):
 
 
 def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
-             remat: str = "full", collect_kv: bool = False, mode=None):
-    """Training / prefill forward. Returns (hidden, aux, kv list|None).
+             remat: str = "full", moe_impl: str = "einsum",
+             collect_kv: bool = False, mode=None):
+    """Training / prefill forward. Returns (hidden, aux, kv list|None); aux is
+    the sum of the layers' MoE load-balance losses (0.0 for the other families).
 
     ``remat`` (a key of ``REMAT_POLICIES``) applies when grad mode is on: each
     block then runs under ``torch.utils.checkpoint``.
@@ -180,7 +195,8 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     block = _checkpointed(partial(_block_apply, cfg=cfg, positions=positions,
-                                  attn_fn=attn_fn, mode=mode), remat)
+                                  attn_fn=attn_fn, mode=mode, moe_impl=moe_impl),
+                          remat)
     aux = 0.0
     kvs = [] if collect_kv else None
     for blk in params["blocks"]:
@@ -200,11 +216,12 @@ def unembed(cfg, params, hidden):
 
 
 def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
-               max_seq: Optional[int] = None, remat: str = "full", mode=None):
+               max_seq: Optional[int] = None, remat: str = "full",
+               moe_impl: str = "einsum", mode=None):
     """Forward + build decode cache. Returns (hidden, cache)."""
     hidden, _, kvs = apply_lm(cfg, params, tokens, embeds=embeds,
-                              attn_fn=attn_fn, remat=remat, collect_kv=True,
-                              mode=mode)
+                              attn_fn=attn_fn, remat=remat, moe_impl=moe_impl,
+                              collect_kv=True, mode=mode)
     B, S = tokens.shape[0], hidden.shape[1]
     max_seq = max_seq or S
     cache = init_cache(cfg, B, max_seq, dtype=cfg.compute_dtype,
@@ -216,8 +233,13 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     return hidden, cache
 
 
-def decode_lm(cfg, params, cache, tokens, *, mode=None):
-    """One decode step. tokens: (B, 1). Returns (logits, cache), cache updated in place."""
+def decode_lm(cfg, params, cache, tokens, *, moe_impl: str = "einsum", mode=None):
+    """One decode step. tokens: (B, 1). Returns (logits, cache), cache updated in place.
+
+    A moe model routes the B new tokens as one group, at a capacity of
+    ``max(1, int(B * k / E * capacity_factor))`` an expert: many choices of a
+    small batch find their expert full and are dropped, as in the reference.
+    """
     _require_ported(cfg)
     x = _embed_inputs(cfg, params, tokens, None)
     idx = int(cache["idx"])
@@ -225,7 +247,7 @@ def decode_lm(cfg, params, cache, tokens, *, mode=None):
     for i, blk in enumerate(params["blocks"]):
         x, _, _ = _block_apply(blk, x, cfg, positions=positions,
                                kv=(cache["k"][i], cache["v"][i]),
-                               cache_index=idx, mode=mode)
+                               cache_index=idx, mode=mode, moe_impl=moe_impl)
     cache["idx"] = idx + 1
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return unembed(cfg, params, x), cache

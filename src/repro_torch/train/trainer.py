@@ -10,9 +10,8 @@ compute type inside the loss. The step updates the state's tensors in place
 tensors: reading one waits for the card.
 
 The reference's ``grad_specs`` (the gradient accumulator's sharding) has no
-counterpart: one card has nothing to shard. Only the dense family is ported;
-``init_state`` and ``make_loss_fn`` raise for the others, and the reference's
-MoE fields (``moe_impl``, ``moe_aux_weight``) are not in ``RunConfig``.
+counterpart: one card has nothing to shard. The dense, moe and vlm families
+are ported; ``init_state`` and ``make_loss_fn`` raise for the others.
 """
 from __future__ import annotations
 
@@ -32,6 +31,8 @@ from repro_torch.train.loss import chunked_cross_entropy
 class RunConfig:
     microbatches: int = 1
     remat: str = "full"
+    moe_impl: str = "einsum"
+    moe_aux_weight: float = 0.01
     loss_chunk: int = 2048
     grad_dtype: str = "float32"        # gradient accumulator dtype
     grad_compress: str = "none"        # none | int8 (error-feedback)
@@ -73,8 +74,13 @@ def _quantize_int8(g, err):
 
 
 def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
-    """loss_fn(params, mb) -> (total, {"loss", "aux"}). ``mode`` is handed to
-    ``kernels.ops`` (``"reference"`` forces the plain attention)."""
+    """loss_fn(params, mb) -> (total, {"loss", "aux"}): total is the loss plus
+    ``moe_aux_weight`` times the MoE load-balance loss. ``mode`` is handed to
+    ``kernels.ops`` (``"reference"`` forces the plain attention).
+
+    ``cast_params`` casts every floating leaf, the MoE router too, as the
+    reference's loss does (``transformer.cast_params``, used for serving,
+    keeps the router fp32)."""
     transformer._require_ported(cfg)
 
     def loss_fn(params, mb):
@@ -86,15 +92,14 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
             params = tree.map_leaves(
                 lambda p: p.to(cdt) if torch.is_floating_point(p) else p, params)
         hidden, aux = api.forward_hidden(cfg, params, mb, remat=run.remat,
-                                         attn_fn=attn_fn, mode=mode)
+                                         moe_impl=run.moe_impl, attn_fn=attn_fn,
+                                         mode=mode)
         s_tok = mb["labels"].shape[1]
         loss, _ = chunked_cross_entropy(
             hidden[:, -s_tok:], api.unembed_table(cfg, params), mb["labels"],
             chunk=run.loss_chunk)
-        # the dense family's aux loss is 0; its weight (the reference's
-        # moe_aux_weight) comes with the moe family
         aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
-        return loss, {"loss": loss, "aux": aux}
+        return loss + run.moe_aux_weight * aux, {"loss": loss, "aux": aux}
     return loss_fn
 
 

@@ -232,6 +232,21 @@ def test_train_launcher_saves_on_sigterm(tmp_path):
     assert len(steps) == 1 and 2 <= steps[0] < 100000
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b"])
+def test_train_launcher_trains_moe_and_vlm(arch, tmp_path, capsys):
+    handler = signal.getsignal(signal.SIGTERM)       # the launcher installs its own
+    try:
+        assert tlaunch.main(["--device", "cpu", "--arch", arch, "--reduced", "--batch", "2",
+                             "--seq", "16", "--steps", "2",
+                             "--ckpt-dir", str(tmp_path / "ck")]) == 0
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    out = capsys.readouterr().out
+    assert f"arch {arch}-reduced" in out and "done: 2 steps" in out
+    assert out.count("\nstep ") == 2
+    assert CheckpointManager(tmp_path / "ck").all_steps() == [2]
+
+
 def test_train_launcher_prediction_line():
     cfg = tregistry.get("olmo-1b")
     line = tlaunch.attention_prediction(cfg, 4, 512)

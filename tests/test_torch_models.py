@@ -69,6 +69,21 @@ def both(arch, dtype, seed=0):
     return cj, ct, pj, pt
 
 
+def record_routes(monkeypatch):
+    """Every call of the port's ``moe._route`` appends (router dtype, chosen experts)."""
+    from repro_torch.models import moe
+    seen = []
+    route = moe._route
+
+    def recording(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        seen.append((p["router"].dtype, out[1]))
+        return out
+
+    monkeypatch.setattr(moe, "_route", recording)
+    return seen
+
+
 def _close(t, j, tol):
     np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), **tol)
 
@@ -117,28 +132,39 @@ def test_fp32_config_against_the_reference_as_it_is():
     _prefill_decode_parity("qwen2.5-3b", "float32", BF16)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_cast_params_gives_the_same_numbers(arch):
+@pytest.mark.parametrize("arch", ARCHS + ["dbrx-132b", "grok-1-314b"])
+def test_cast_params_gives_the_same_numbers(arch, monkeypatch):
+    """The same hidden states, logits and (moe) chosen experts with and without
+    the cast; the norm scales and the MoE router stay fp32."""
     _, ct, _, pt = both(arch, "bfloat16", seed=2)
     cast = tapi.cast_params(ct, pt)
     blk = cast["blocks"][0]
+    ffn = blk["moe"] if ct.family == "moe" else blk["mlp"]
     assert blk["attn"]["wq"]["w"].dtype == torch.bfloat16
-    assert blk["mlp"]["wd"]["w"].dtype == torch.bfloat16
+    assert (ffn["wd"] if ct.family == "moe" else ffn["wd"]["w"]).dtype == torch.bfloat16
     assert cast["emb"]["table"].dtype == torch.bfloat16
+    if ct.family == "moe":
+        assert blk["moe"]["router"].dtype == torch.float32
     if "scale" in cast["final_norm"]:
         assert cast["final_norm"]["scale"].dtype == torch.float32
         assert blk["attn_norm"]["scale"].dtype == torch.float32
+    seen = record_routes(monkeypatch)
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, ct.vocab_size, (1, 9)))
     with torch.no_grad():
         h1, c1 = tapi.prefill(ct, pt, {"tokens": toks}, max_seq=12)
-        h2, c2 = tapi.prefill(ct, cast, {"tokens": toks}, max_seq=12)
         l1, _ = tapi.decode(ct, pt, c1, toks[:, -1:])
+        n = len(seen)
+        h2, c2 = tapi.prefill(ct, cast, {"tokens": toks}, max_seq=12)
         l2, _ = tapi.decode(ct, cast, c2, toks[:, -1:])
     assert torch.equal(h1, h2) and torch.equal(l1, l2)
+    assert n == (2 * ct.num_layers if ct.family == "moe" else 0) and len(seen) == 2 * n
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(seen[:n], seen[n:]))
+    assert all(dt == torch.float32 for dt, _ in seen)
     c32 = dataclasses.replace(ct, compute_dtype="float32")
     cast32 = tapi.cast_params(c32, pt)
     assert cast32["blocks"][0]["attn"]["wq"]["w"] is pt["blocks"][0]["attn"]["wq"]["w"]
-    assert cast32["blocks"][0]["mlp"]["wg"]["w"].dtype == torch.float32
+    ffn32 = cast32["blocks"][0]["moe" if ct.family == "moe" else "mlp"]
+    assert (ffn32["wg"] if ct.family == "moe" else ffn32["wg"]["w"]).dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -173,8 +199,7 @@ def test_prefill_through_explicit_attn_fn_and_reference_mode_agree():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("dbrx-132b", "moe"), ("zamba2-7b", "hybrid"), ("rwkv6-7b", "ssm"),
-    ("pixtral-12b", "vlm"), ("whisper-large-v3", "encdec")])
+    ("zamba2-7b", "hybrid"), ("rwkv6-7b", "ssm"), ("whisper-large-v3", "encdec")])
 def test_unported_family_raises(arch, family):
     cfg = tregistry.get(arch).reduced()
     assert cfg.family == family
@@ -182,6 +207,22 @@ def test_unported_family_raises(arch, family):
         tapi.init(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=family):
         tapi.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch,family", [
+    ("dbrx-132b", "moe"), ("grok-1-314b", "moe"), ("pixtral-12b", "vlm")])
+def test_moe_and_vlm_configs_initialise(arch, family):
+    """Once refused as unported: now a seeded init shaped as the JAX package's, and a cache."""
+    cj, ct = jregistry.get(arch).reduced(), tregistry.get(arch).reduced()
+    assert ct.family == family
+    params = tapi.init(ct, 0, device="cpu")
+    shapes = jax.eval_shape(lambda: japi.init(cj, jax.random.PRNGKey(0)))
+    back = compat.params_to_jax(ct, params)
+    assert jax.tree.structure(back) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(back), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == np.float32
+    cache = tapi.init_cache(ct, 1, 8, device="cpu")
+    assert cache["k"].shape == (ct.num_layers, 1, 8, ct.num_kv_heads, ct.head_dim)
 
 
 def test_seeded_init_is_reproducible_and_shaped_like_jax():

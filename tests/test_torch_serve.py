@@ -47,6 +47,9 @@ def _requests(mod, vocab, n, prompt_len, max_new, seed):
     ("olmo-1b", 6, 3, 8, 4, 64, 0),         # the quickstart's serving scenario
     ("qwen2.5-3b", 5, 2, 6, 3, 32, 1),      # test_serve_engine_batched_requests
     ("llama3-8b", 4, 4, 5, 6, 16, 2),
+    ("dbrx-132b", 4, 2, 6, 3, 32, 3),       # moe: decode drops choices at capacity 1
+    ("grok-1-314b", 3, 3, 5, 4, 16, 4),
+    ("pixtral-12b", 4, 2, 6, 3, 32, 5),     # vlm served on tokens alone, as by the reference
 ])
 def test_engine_tokens_identical_to_jax(arch, n, slots, prompt_len, max_new, max_seq, seed,
                                         reference_mlp_follows_compute_dtype):
@@ -121,6 +124,26 @@ def test_prefill_and_serve_steps_greedy_int32():
     assert nb.shape == (2, 1) and cache_b["k"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b"])
+def test_prefill_step_takes_moe_and_vlm_configs(arch, reference_mlp_follows_compute_dtype):
+    """make_prefill_step against the reference's in fp32: the same greedy token
+    and cache; it takes ``cast_params`` too."""
+    from repro.serve import decode as jdecode
+    ct = dataclasses.replace(tregistry.get(arch).reduced(), compute_dtype="float32")
+    cj = dataclasses.replace(jregistry.get(arch).reduced(), compute_dtype="float32")
+    tree = numpy_params(cj, 7)
+    pj, pt = jax.tree.map(jnp.asarray, tree), compat.params_from_jax(ct, tree, device="cpu")
+    toks = np.random.default_rng(8).integers(0, ct.vocab_size, (2, 9))
+    nt, cache_t = tdecode.make_prefill_step(ct, max_seq=16)(pt, {"tokens": torch.from_numpy(toks)})
+    nj, cache_j = jdecode.make_prefill_step(cj, max_seq=16)(pj, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    np.testing.assert_allclose(cache_t["k"].numpy(), np.asarray(cache_j["k"]), atol=1e-4,
+                               rtol=1e-4)
+    nb, _ = tdecode.make_prefill_step(ct, max_seq=16, cast_params="bfloat16")(
+        pt, {"tokens": torch.from_numpy(toks)})
+    assert nb.shape == (2, 1)
+
+
 @pytest.mark.parametrize("samples", [
     [], [0.1], [0.1, 0.1, 0.1, 0.1], [0.05, 0.2, 0.1, 0.4, 0.3, 0.1, 0.15],
     list(np.random.default_rng(7).lognormal(-2, 0.5, 200)), [0.0, 0.0, 1.0]])
@@ -152,6 +175,18 @@ def test_launcher_flags(capsys):
     assert parse([]).reduced is True and parse(["--reduced"]).reduced is True
     assert parse(["--full"]).reduced is False and parse(["--no-reduced"]).reduced is False
     assert parse([]).device == "cuda" and parse([]).arch == "qwen2.5-3b"
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b"])
+def test_launcher_serves_moe_and_vlm(arch, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", arch, "--requests", "2", "--slots", "2",
+                       "--max-new", "2", "--prompt-len", "5", "--max-seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert f"served 2 requests / 4 tokens of {arch}-reduced on cpu in" in out
+    # the prediction's group size is the config's: 48 / 8 = 6 for dbrx at full width
+    assert tregistry.get(arch).q_group_size == {"dbrx-132b": 6, "pixtral-12b": 4}[arch]
+    assert serve.decode_prediction(tregistry.get(arch).reduced(), 2, 16) + "\n" in out
 
 
 def test_launcher_decode_prediction_matches_reference():

@@ -11,7 +11,8 @@ Phases, each printing one JSON line:
            card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
            flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
            flash_decode_sm90.cu), and timed at the serving shapes and at a
-           long context (the bf16 forward also at olmo-1b's training shape)
+           long context (the bf16 kernels also at zamba2-7b's shapes, head_dim
+           112 and G = 1, and the bf16 forward at olmo-1b's training shape)
            beside its plain version, one library call (a
            yardstick only: the port never calls it) and its roofline bound.
            Kernel and library times are device times (kernel durations from
@@ -41,6 +42,17 @@ Phases, each printing one JSON line:
            LOGITS_TOL of the bf16-P route's where that position's routing
            agreed in both layers (against fp32 P they are a reading: rounding P
            alone moves them as far, see moe_check)
+  hybrid   zamba2-7b at full width and depth (81 layers: 3 Mamba2 layers, then
+           13 groups of 5 Mamba2 layers each followed by the one shared
+           attention block; 32 query / 32 KV heads, head_dim 112), bf16, random
+           seeded weights: the serve phase's traffic through ServeEngine;
+           asserts 8 x 13 forward and steps x 13 decode launches on the bf16
+           kernels; peak memory and one profiled decode step. Checks: at 2
+           groups, one prompt's last prefill and first decode logits within
+           LOGITS_TOL of the plain route that rounds P to bf16 as the bf16
+           forward does (against fp32 P, and at full depth, readings); one
+           full-width Mamba2 layer's 512 tokens as one chunked call and as 512
+           one-token calls: the final state within 1e-3, the outputs within 2e-2
   train    olmo-1b at full width and depth, bf16 compute on fp32 master weights:
            5 AdamW steps of batch 4 x 512 tokens (remat "full"); the attention
            gradients through the kernel route against mode="reference" at the
@@ -83,7 +95,7 @@ from repro_torch.core.simfa import simulate_fa3               # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
-from repro_torch.models import api, moe                       # noqa: E402
+from repro_torch.models import api, mamba, moe                # noqa: E402
 from repro_torch.models.attention import knob_attention       # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
 from repro_torch.data.synthetic import DataIterator           # noqa: E402
@@ -112,6 +124,7 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (2, 32, 8, 2048, 2048, 128),
     (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
     (1, 48, 8, 512, 512, 128),     # dbrx-132b's prefill, G = 6
+    (1, 32, 32, 512, 512, 112),    # zamba2-7b's shared block's prefill, G = 1, D 112
 ]
 FWD_ODD = [  # fp32 only, causal: the pairing of 32-row tiles in flash_fwd.cu
     (1, 4, 1, 80, 80, 112),        # 3 row tiles: the middle one alone, ragged rows
@@ -133,6 +146,7 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (4, 16, 2, 1024, 128, 1),      # one cached row
     (1, 16, 2, 32768, 128, 32768), # the longest context of qwen2.5-3b
     (4, 48, 8, 1024, 128, 520),    # dbrx-132b's decode step, G = 6
+    (4, 32, 32, 1024, 112, 520),   # zamba2-7b's decode step, G = 1, D 112
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -146,9 +160,15 @@ MOE = dict(arch="dbrx-132b", layers=2, requests=8, prompt_len=512, slots=4, max_
            max_seq=1024)
 ROUTING_AGREEMENT = 0.99   # share of the kernels' (token, layer, choice) experts a plain route
                            # chooses too
+HYBRID = dict(arch="zamba2-7b", requests=8, prompt_len=512, slots=4, max_new=16,
+              max_seq=1024, check_groups=2)
+SSD_TOL = dict(state=1e-3, out=2e-2)   # the reference's own chunked-against-recurrent
+                                       # tolerances (tests/test_models.py)
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
 LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
+ZAMBA_FWD = (1, 32, 32, 512, 112)  # zamba2-7b's shared block's prefill
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
+ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
 
 
@@ -343,12 +363,11 @@ def decode_grid_cases():
             yield shape, dtype
 
 
-def time_decode(rng, dt):
-    """Times decode at the serving shape, cycling over the 36 layers' slices of
-    one cache as a decode step does, so that each launch finds its K/V rows
-    cold in L2; checks the first and last layer through ops (strided views)
-    and the library call. Returns (timings, worst error)."""
-    s = SERVE_DEC
+def time_decode(rng, dt, s=SERVE_DEC):
+    """Times decode at shape ``s`` (the serving shape unless given), cycling over
+    its layers' slices of one cache as a decode step does, so that each launch
+    finds its K/V rows cold in L2; checks the first and last layer through ops
+    (strided views) and the library call. Returns (timings, worst error)."""
     cache_k = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
     cache_v = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), dt)
     qd = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
@@ -358,7 +377,7 @@ def time_decode(rng, dt):
         got = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen)
         torch.cuda.synchronize()
         want = ops.decode_forward(qd, cache_k[layer], cache_v[layer], clen, mode="reference")
-        worst = max(worst, compare(got, want, dt, f"flash_decode {dt} serving shape via ops, "
+        worst = max(worst, compare(got, want, dt, f"flash_decode {dt} {s} via ops, "
                                                   f"layer {layer}"))
     qdt = qd.transpose(1, 2)
     compare(sdpa(qdt, cache_k[0, :, :clen].transpose(1, 2),
@@ -413,6 +432,31 @@ def time_long_decode(rng, dt):
     return dict(at="B{B} H{H} Hkv{Hkv} cache_len{clen} D{D} ".format(**s) + str(dt)[6:],
                 ms=ms, sm_clock=clock, library_ms=device_ms(lambda: sdpa(qdt, kt, vt, False)),
                 bound_ms=bound_ms, share_of_3_35_tb_s=bound_ms / ms), err
+
+
+def time_fwd(rng, shape, dt, plain=False):
+    """The forward through ops at ``shape`` (B, H, Hkv, L = S, D), causal: device
+    time beside the library call's and the bound; with ``plain`` also checked
+    against and timed beside the plain version. Returns (timings, error)."""
+    B, H, Hkv, L, D = shape
+    q = randn(rng, (B, L, H, D), dt)
+    k = randn(rng, (B, L, Hkv, D), dt)
+    v = randn(rng, (B, L, Hkv, D), dt)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = dict(at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal {str(dt)[6:]}",
+               ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+               sm_clock=sm_clock(),
+               library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)))
+    out["bound_ms"], out["bound_by"] = bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))
+    err = 0.0
+    if plain:
+        got = ops.mha_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = compare(got, ops.mha_forward(q, k, v, causal=True, mode="reference"), dt,
+                      f"forward {out['at']} via ops")
+        out["plain_ms"] = time_ms(lambda: ops.mha_forward(q, k, v, causal=True,
+                                                          mode="reference"), iters=10)
+    return out, err
 
 
 def phase_kernels():
@@ -493,34 +537,17 @@ def phase_kernels():
             *fwd_costs(s["B"], s["H"], s["Hkv"], s["L"], s["L"], s["D"], dt, True))
 
     # both kernels at a long context as well (more K/V tiles than ring stages)
-    B, H, Hkv, L, D = LONG_FWD
     for dt in (torch.bfloat16, torch.float32):
         name = "flash_fwd" if dt == torch.bfloat16 else "flash_fwd_f32"
-        q = randn(rng, (B, L, H, D), dt)
-        k = randn(rng, (B, L, Hkv, D), dt)
-        v = randn(rng, (B, L, Hkv, D), dt)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        fwd[name]["long"] = dict(
-            at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal {str(dt)[6:]}",
-            ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
-            sm_clock=sm_clock(),
-            library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
-            bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))[0])
-        del q, k, v, qt, kt, vt
+        fwd[name]["long"] = time_fwd(rng, LONG_FWD, dt)[0]
 
-    # the bf16 kernel at olmo-1b's training shape (the train phase's forward)
-    B, H, Hkv, L, D = TRAIN_GRAD_CASES[0][0]
-    q = randn(rng, (B, L, H, D), torch.bfloat16)
-    k = randn(rng, (B, L, Hkv, D), torch.bfloat16)
-    v = randn(rng, (B, L, Hkv, D), torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fwd["flash_fwd"]["train"] = dict(
-        at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal bfloat16",
-        ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
-        sm_clock=sm_clock(),
-        library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)),
-        bound_ms=bound(*fwd_costs(B, H, Hkv, L, L, D, torch.bfloat16, True))[0])
-    del q, k, v, qt, kt, vt
+    # the bf16 kernel at olmo-1b's training shape (the train phase's forward) and
+    # at zamba2-7b's prefill (the hybrid phase's: G = 1, D 112 in 128-column tiles)
+    bf16 = torch.bfloat16
+    fwd["flash_fwd"]["train"] = time_fwd(rng, TRAIN_GRAD_CASES[0][0], bf16)[0]
+    fwd["flash_fwd"]["zamba2"], err = time_fwd(rng, ZAMBA_FWD, bf16, plain=True)
+    worst["flash_fwd"] = max(worst["flash_fwd"], err)
+    cases["flash_fwd"] += 1
 
     # decode in both types at the serving shape and at a long cache
     dec = {}
@@ -530,6 +557,14 @@ def phase_kernels():
         dec[name]["long"], err_long = time_long_decode(rng, dt)
         worst[name] = max(worst[name], err, err_long)
         cases[name] += 3
+    # the bf16 kernel at zamba2-7b's decode step (G = 1 in an 8-column MMA, D 112)
+    z = ZAMBA_DEC
+    dec["flash_decode"]["zamba2"], err = time_decode(rng, bf16, z)
+    dec["flash_decode"]["zamba2"]["at"] = (
+        "B{B} H{H} Hkv{Hkv} S_max{S_max} cache_len{clen} D{D} bf16, {layers} layers' "
+        "slices, cold L2".format(**z))
+    worst["flash_decode"] = max(worst["flash_decode"], err)
+    cases["flash_decode"] += 2
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,
@@ -800,15 +835,22 @@ def dropped(idx, cfg, group):
     return (pos.gather(2, flat[..., None]) >= cap).reshape(idx.shape)
 
 
+def logits_of(cfg, params, toks, max_seq, mode=None, attn_fn=None):
+    """One prompt's prefill and first decode step through one attention route:
+    (last prefill position's logits, first decode step's logits)."""
+    with torch.no_grad():
+        hidden, cache = api.prefill(cfg, params, {"tokens": toks}, max_seq=max_seq, mode=mode,
+                                    attn_fn=attn_fn)
+        first, _ = api.decode(cfg, params, cache, toks[:, -1:], mode=mode)
+        return api.unembed(cfg, params, hidden[:, -1:]).float(), first.float()
+
+
 def moe_route(cfg, params, toks, max_seq, mode=None, attn_fn=None):
     """One prompt's prefill and first decode step through one attention route:
     (last prefill position's logits, first decode step's logits), and the
     experts each layer chose in the prefill and in the decode step."""
-    with recorded_routes() as seen, torch.no_grad():
-        hidden, cache = api.prefill(cfg, params, {"tokens": toks}, max_seq=max_seq, mode=mode,
-                                    attn_fn=attn_fn)
-        first, _ = api.decode(cfg, params, cache, toks[:, -1:], mode=mode)
-        logits = (api.unembed(cfg, params, hidden[:, -1:]).float(), first.float())
+    with recorded_routes() as seen:
+        logits = logits_of(cfg, params, toks, max_seq, mode, attn_fn)
     L = cfg.num_layers
     if len(seen) != 2 * L:
         raise AssertionError(f"moe check: {len(seen)} routings, want {2 * L}")
@@ -944,6 +986,148 @@ def phase_moe(kernels):
           "profile_decode_step": prof, "sample_tokens": reqs[0].out})
     del eng
     torch.cuda.empty_cache()
+
+
+def logits_far(cfg, got, want):
+    """Each logits vector's max abs error and worst ratio to LOGITS_TOL."""
+    out = {}
+    for what, g, w in zip(("prefill_last", "decode_first"), got, want):
+        if g.shape != (1, 1, cfg.vocab_size) or not torch.isfinite(g).all():
+            raise AssertionError(f"{cfg.name} {what}: logits shape {tuple(g.shape)} "
+                                 "or values are off")
+        err = (g - w).abs()
+        out[what] = {"max_abs_err": float(err.max()), "worst_ratio_to_tol": float(
+            (err / (LOGITS_TOL + LOGITS_TOL * w.abs())).max())}
+    return out
+
+
+def hybrid_routes(cfg, params, prompt_len, max_seq):
+    """One prompt through the kernels, through the plain route that rounds P to
+    bf16 over 128-key tiles as the bf16 forward does, and through
+    mode="reference" (fp32 P): the kernels against each plain route, and the
+    two plain routes against each other (the scale of a right answer)."""
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, prompt_len))).to(DEV)
+    bf16_p = knob_attention(fa.DEFAULT_BLOCK_K, True, device=DEV, dtype=torch.bfloat16,
+                            mode="reference")
+    kernel = logits_of(cfg, params, toks, max_seq)
+    plain_bf16_p = logits_of(cfg, params, toks, max_seq, mode="reference", attn_fn=bf16_p)
+    plain = logits_of(cfg, params, toks, max_seq, mode="reference")
+    return {"kernel_vs_plain_bf16_p": logits_far(cfg, kernel, plain_bf16_p),
+            "kernel_vs_plain_fp32_p": logits_far(cfg, kernel, plain),
+            "plain_bf16_p_vs_plain_fp32_p": logits_far(cfg, plain_bf16_p, plain)}
+
+
+def ssd_check(cfg):
+    """One full-width Mamba2 layer takes a prompt two ways: one chunked call
+    (chunks of ``ssm_chunk``) and one-token decode calls carried through the
+    state. The final ssm state must agree at SSD_TOL["state"] and the outputs
+    at SSD_TOL["out"]: TF32 products or a wrong carry between chunks break it."""
+    S = HYBRID["prompt_len"]
+    p = mamba.mamba_init(torch.Generator(device=DEV).manual_seed(8), cfg)
+    x = (0.5 * torch.randn((1, S, cfg.d_model), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(9))).bfloat16()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_chunk, st_chunk = mamba.mamba_apply(p, x, cfg)
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        st, ys = mamba.mamba_state_init(cfg, 1, device=DEV), []
+        t0 = time.perf_counter()
+        for t in range(S):
+            y_t, st = mamba.mamba_apply(p, x[:, t:t + 1], cfg, state=st)
+            ys.append(y_t)
+        y_seq = torch.cat(ys, dim=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / S
+    out = {"tokens": S, "chunks": -(-S // cfg.ssm_chunk), "tolerance": SSD_TOL,
+           "chunked_call_ms": chunk_ms, "one_token_call_ms": step_ms}
+    for what, got, want, tol in (("state", st["ssm"], st_chunk["ssm"], SSD_TOL["state"]),
+                                 ("out", y_seq.float(), y_chunk.float(), SSD_TOL["out"])):
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > tol + tol * want.abs()).any():
+            raise AssertionError(f"ssd check {what}: the recurrence and the chunked scan "
+                                 f"differ on the card, max abs err {float(err.max()):.3e}")
+        out[f"{what}_max_abs_err"] = float(err.max())
+    if not torch.equal(st["conv"], st_chunk["conv"]):
+        raise AssertionError("ssd check: the convolution states differ")
+    return out
+
+
+def phase_hybrid(kernels):
+    """Full-width, full-depth zamba2-7b served through both bf16 kernels at
+    head_dim 112 and G = 1 (see the module docstring)."""
+    h = HYBRID
+    cfg = registry.get(h["arch"])
+    n_req, prompt_len, slots, max_new, max_seq = (h[k] for k in (
+        "requests", "prompt_len", "slots", "max_new", "max_seq"))
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init(cfg, 0, device=DEV)
+    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, device=DEV)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    reqs = make_requests(cfg, n_req, prompt_len, max_new, seed=7)
+
+    reset_counts()
+    t0 = time.time()
+    prefill_ms, decode_ms = drive(eng, reqs)
+    wall = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    G = cfg.hybrid_groups
+    if (counts["flash_fwd"] != n_req * G or fa.launches != counts["flash_fwd"]
+            or counts["flash_decode"] != eng.steps * G or eng.steps == 0
+            or fd.launches != counts["flash_decode"]):
+        raise AssertionError(f"hybrid: launches {counts} ({fa.launches} forward, {fd.launches} "
+                             f"decode in all); want {n_req} x {G} on the bf16 forward and "
+                             f"{eng.steps} x {G} on the bf16 decode, nothing else")
+    for r in reqs:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"hybrid: request {r.rid}: bad output {r.out}")
+    for kern in kernels:
+        if kern["name"] in ("flash_fwd", "flash_decode"):
+            kern["launches_hybrid"] = counts[kern["name"]]
+    with torch.no_grad():           # two more decode steps of the 4 slots: untraced, traced
+        prof = profiled(lambda: api.decode(cfg, eng.params, eng.cache, eng.tokens),
+                        watch=("flash_decode_sm90",))
+    full_depth = hybrid_routes(cfg, eng.params, prompt_len, max_seq)
+    n_params, steps = sum(p.numel() for p in tree.leaves(eng.params)), eng.steps
+    del eng
+    torch.cuda.empty_cache()
+
+    # the check: the kernels against the plain bf16-P route at a cut depth
+    cut = dataclasses.replace(cfg, hybrid_groups=h["check_groups"], num_layers=(
+        cfg.hybrid_prologue + h["check_groups"] * (cfg.hybrid_mamba_per_group + 1)))
+    params = api.cast_params(cut, api.init(cut, 1, device=DEV))
+    check = hybrid_routes(cut, params, prompt_len, max_seq)
+    del params
+    torch.cuda.empty_cache()
+    held = check["kernel_vs_plain_bf16_p"]
+    if any(held[w]["worst_ratio_to_tol"] > 1 for w in held):
+        raise AssertionError(f"hybrid check: logits beyond LOGITS_TOL of the plain bf16-P "
+                             f"route at {h['check_groups']} groups; {check}")
+    ssd = ssd_check(cfg)
+    emit({"phase": "hybrid", "model": cfg.name, "layers": cfg.num_layers,
+          "prologue": cfg.hybrid_prologue, "groups": G,
+          "mamba_per_group": cfg.hybrid_mamba_per_group, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk,
+          "compute_dtype": cfg.compute_dtype, "params": n_params,
+          "allocated_gb_before_init": allocated_gb,
+          "requests": n_req, "prompt_len": prompt_len, "slots": slots, "max_new": max_new,
+          "max_seq": max_seq, "init_seconds": round(init_s, 2), "decode_steps": steps,
+          "launches": counts, "prefill_ms_per_request": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step_first": decode_ms[0], "tokens_per_s": n_req * max_new / wall,
+          "wall_seconds": wall, "peak_memory_gb": peak_gb,
+          "check_groups": h["check_groups"], "logits_tolerance": LOGITS_TOL,
+          "check": check, "full_depth_reading": full_depth, "ssd_check": ssd,
+          "profile_decode_step": prof, "sample_tokens": reqs[0].out})
 
 
 def attention_grads(rng, shape, dtype):
@@ -1199,7 +1383,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,sim,serve,path,path_f32,moe,train")
+                    default="device,build,kernels,sim,serve,path,path_f32,moe,hybrid,train")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1218,13 +1402,15 @@ def main(argv=None):
         phase_path_f32(kernels)
     if "moe" in phases:
         phase_moe(kernels)
+    if "hybrid" in phases:
+        phase_hybrid(kernels)
     if "train" in phases:
         phase_train(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32",
-                                         "moe", "train"))
+                                         "moe", "hybrid", "train"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

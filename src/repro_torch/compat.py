@@ -2,7 +2,11 @@
 this port.
 
 The JAX package stacks every block leaf along a leading layer dim (its layers
-are scanned); the port keeps a Python list of per-layer dicts. Both sides store
+are scanned); the port keeps a Python list of per-layer dicts. The subtrees
+stacked so, and on how many leading dims, are ``transformer.JAX_STACKED_DIMS``:
+``blocks`` and a hybrid model's ``prologue`` on one, its ``groups`` on two
+(a list of lists here); every other entry (a hybrid model's ``shared_attn``
+among them) crosses as it is. Both sides store
 ``dense`` weights as ``(d_in, d_out)``, used as ``x @ w``, so no leaf is
 transposed. The functions take and give numpy arrays only.
 
@@ -21,40 +25,50 @@ import torch
 
 from repro_torch.tree import leaves, map_leaves
 from repro_torch.models.api import resolve_device
+from repro_torch.models.transformer import JAX_STACKED_DIMS
 from repro_torch.train.optimizer import OptState
 from repro_torch.train.trainer import TrainState
+
+
+def _unstack(node, dims: int):
+    """A subtree stacked on ``dims`` leading dims as nested lists of subtrees."""
+    if dims == 0:
+        return node
+    n = len(leaves(node)[0])
+    return [_unstack(map_leaves(lambda a, i=i: np.asarray(a)[i], node), dims - 1)
+            for i in range(n)]
+
+
+def _stack(node, dims: int):
+    """Nested lists ``dims`` deep of subtrees as one subtree stacked on ``dims``
+    leading dims (the inverse of ``_unstack``)."""
+    if dims == 0:
+        return node
+    items = [_stack(x, dims - 1) for x in node]
+    if isinstance(items[0], dict):
+        return {k: _stack([x[k] for x in items], 1) for k in items[0]}
+    return np.stack(items, axis=0)
 
 
 def params_from_jax(cfg, tree: Dict[str, Any], *, device="cuda"):
     """Port-side parameters from the JAX package's tree (leaves as numpy arrays),
     on ``device``: the card unless the caller asks for the CPU."""
-    n = cfg.num_layers
     device = resolve_device(device)
 
     def leaf(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    out = {k: map_leaves(leaf, v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [map_leaves(lambda a, i=i: leaf(np.asarray(a)[i]), tree["blocks"])
-                     for i in range(n)]
-    return out
+    return {k: map_leaves(leaf, _unstack(v, JAX_STACKED_DIMS.get(k, 0)))
+            for k, v in tree.items()}
 
 
 def params_to_jax(cfg, params) -> Dict[str, Any]:
-    """The JAX package's tree layout (numpy leaves, blocks stacked on a leading dim)."""
+    """The JAX package's tree layout (numpy leaves, layers stacked on leading dims)."""
     def leaf(t):
         return t.detach().to("cpu").numpy().copy()
 
-    out = {k: map_leaves(leaf, v) for k, v in params.items() if k != "blocks"}
-    blocks = [map_leaves(leaf, b) for b in params["blocks"]]
-
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([nd[k] for nd in nodes]) for k in nodes[0]}
-        return np.stack(nodes, axis=0)
-
-    out["blocks"] = stack(blocks)
-    return out
+    return {k: _stack(map_leaves(leaf, v), JAX_STACKED_DIMS.get(k, 0))
+            for k, v in params.items()}
 
 
 def train_state_from_jax(cfg, state, *, device="cuda") -> TrainState:

@@ -4,11 +4,13 @@
         --requests 8 --slots 4 --prompt-len 512 --max-new 16 --max-seq 1024
 
 ``--reduced`` (the default) serves the tiny same-family config; ``--full`` (or
-``--no-reduced``) serves the architecture at its published size. Dense, moe
-and vlm ``--arch`` values are served (a vlm on its tokens alone, as the JAX
-launcher serves it). ``--full`` must fit one card: at 40 layers ``dbrx-132b``
-is 132 B parameters, 528 GB in fp32 before the bf16 copy, and CUDA's
-out-of-memory error says so; ``chip_smoke.py`` serves it at 2 layers. ``--device``
+``--no-reduced``) serves the architecture at its published size. Dense, moe,
+vlm and hybrid ``--arch`` values are served (a vlm on its tokens alone, as the
+JAX launcher serves it; ``--arch zamba2-7b`` is the hybrid). ``--full`` must fit
+one card: ``zamba2-7b`` does (5.63 B parameters, about 34 GB at the peak: the
+fp32 init plus the bf16 copy); at 40 layers ``dbrx-132b`` is 132 B parameters,
+528 GB in fp32 before the bf16 copy, and CUDA's out-of-memory error says so;
+``chip_smoke.py`` serves it at 2 layers. ``--device``
 defaults to ``cuda`` and a missing card is an error; ``--device cpu`` runs the
 plain PyTorch path. Before serving it prints the simulator's split-KV decode
 prediction for the serving workload on the H800 preset, as the JAX launcher

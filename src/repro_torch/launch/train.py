@@ -5,11 +5,13 @@ watchdog calibrated off the first step, preemption-signal save.
         --batch 8 --seq 64 --steps 20
 
 ``--device`` defaults to ``cuda`` and a missing card is an error; ``--device
-cpu`` trains through the plain PyTorch path. Dense, moe and vlm ``--arch``
-values train (the loss adds 0.01 x the MoE load-balance loss). A moe model at
-published width does not fit one card: one ``dbrx-132b`` layer with its
-embeddings is about 4.5 B parameters, about 72 GB of fp32 weights, gradients
-and AdamW moments before activations. The port runs on one device:
+cpu`` trains through the plain PyTorch path. Dense, moe, vlm and hybrid
+``--arch`` values train (the loss adds 0.01 x the MoE load-balance loss). A moe
+model at published width does not fit one card: one ``dbrx-132b`` layer with
+its embeddings is about 4.5 B parameters, about 72 GB of fp32 weights,
+gradients and AdamW moments before activations. Nor does ``zamba2-7b`` at
+published width: its 5.63 B parameters come to about 90 GB of fp32 weights,
+gradients and AdamW moments. The port runs on one device:
 ``--dp`` and ``--tp`` other than 1 are refused (``parallel/`` is not ported).
 Before training it prints the simulator's attention prediction for the
 training workload on the H800 preset, where the JAX launcher prints its

@@ -1,11 +1,15 @@
-"""LM-family model assembly: the dense, MoE and VLM families.
+"""LM-family model assembly: the dense, MoE, VLM and hybrid (Zamba2) families.
 
 Blocks are a Python list of per-layer parameter dicts and the stacks are Python
 loops over it. Under grad, ``remat`` names how each block is checkpointed for
 the backward pass (``REMAT_POLICIES``, as in the reference). A moe block runs
 ``moe.moe_apply`` in place of the MLP and adds its load-balance loss to the
-stack's aux; a vlm model is the dense stack behind an ``embeds`` prefix. The
-other families (hybrid, ssm) are not ported yet and raise
+stack's aux; a vlm model is the dense stack behind an ``embeds`` prefix. A
+hybrid model is ``hybrid_prologue`` Mamba2 layers (``params["prologue"]``), then
+``hybrid_groups`` groups of ``hybrid_mamba_per_group`` Mamba2 layers
+(``params["groups"]``, a list of lists), each group followed by the one shared
+attention block (``params["shared_attn"]``, one weight set used after every
+group). The ssm family (rwkv) is not ported yet and raises
 ``NotImplementedError`` naming the family.
 
 Public API (used by train/, serve/ and launch/):
@@ -17,10 +21,14 @@ Public API (used by train/, serve/ and launch/):
     init_cache(cfg, batch, max_seq)         -> cache dict
     unembed(cfg, params, hidden)            -> logits
 
-The cache is ``{"k", "v": (L, B, S_max, Hkv, hd), "idx": int}``. ``idx`` is a
-host int (reading a device scalar back every step would synchronise), and
-``decode_lm`` updates ``k``, ``v`` and ``idx`` **in place**: the cache it
-returns is the one it was given.
+The cache is ``{"k", "v": (L, B, S_max, Hkv, hd), "idx": int}``; a hybrid
+model's is ``{"prologue": [state], "groups": [[state]], "attn_k", "attn_v":
+(hybrid_groups, B, S_max, Hkv, hd), "idx": int}``, a state being a Mamba2 layer's
+fp32 ``{"conv", "ssm"}``. ``idx`` is a host int (reading a device scalar back
+every step would synchronise), and ``decode_lm`` updates the cache **in place**
+(K/V rows written into the tensors, the layers' states replaced in the lists):
+the cache it returns is the one it was given. ``write_slot`` copies a
+one-sequence cache into one slot of a batched one.
 """
 from __future__ import annotations
 
@@ -31,12 +39,20 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.models import attention, layers, moe
+from repro_torch import tree
+from repro_torch.models import attention, layers, mamba, moe
 
-PORTED_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 # leaves that cast_params keeps fp32: the norm scales (apply_norm multiplies in
-# fp32) and the MoE router (moe._route computes the routing in fp32 from it)
-_FP32_KEYS = ("attn_norm", "mlp_norm", "final_norm", "router")
+# fp32; "norm" is a Mamba2 layer's and its inner norm's), the MoE router
+# (moe._route computes the routing in fp32 from it) and the Mamba2 leaves that
+# mamba_apply uses in fp32 (the convolution, the decay, the skip and dt's bias)
+_FP32_KEYS = ("attn_norm", "mlp_norm", "final_norm", "router",
+              "norm", "conv_w", "conv_b", "A_log", "D", "dt_bias")
+# leading dims the JAX package stacks each of these subtrees on (its layers are
+# scanned; the port keeps lists): compat unstacks and restacks them, and the
+# optimizer's decay rule counts them as the reference's rank test sees them
+JAX_STACKED_DIMS = {"blocks": 1, "prologue": 1, "groups": 2}
 
 # the counterparts of the reference's jax.checkpoint policies: which outputs of
 # a block's forward are kept for the backward pass ("full" keeps none and runs
@@ -96,6 +112,17 @@ def _block_apply(p, x, cfg, *, positions, kv=None, cache_index=None,
     return x + h, new_kv, 0.0
 
 
+def _mamba_layer_init(gen, cfg):
+    return {"norm": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
+            "mamba": mamba.mamba_init(gen, cfg)}
+
+
+def _mamba_layer_apply(p, x, cfg, state=None):
+    h = layers.apply_norm(cfg.norm, p["norm"], x)
+    h, new_state = mamba.mamba_apply(p["mamba"], h, cfg, state=state)
+    return x + h, new_state
+
+
 def _checkpointed(fn, remat):
     """``fn`` under the checkpointing that ``remat`` names; ``fn`` itself
     without grad (serving), where no backward pass will run."""
@@ -127,6 +154,14 @@ def init_lm(cfg, gen: torch.Generator):
               "final_norm": layers.norm_init(cfg.norm, cfg.d_model, gen.device)}
     if not cfg.tie_embeddings:
         params["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size)
+    if cfg.family == "hybrid":
+        params["prologue"] = [_mamba_layer_init(gen, cfg)
+                              for _ in range(cfg.hybrid_prologue)]
+        params["groups"] = [[_mamba_layer_init(gen, cfg)
+                             for _ in range(cfg.hybrid_mamba_per_group)]
+                            for _ in range(cfg.hybrid_groups)]
+        params["shared_attn"] = _block_init(gen, cfg)  # ONE weight set, reused
+        return params
     params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.num_layers)]
     return params
 
@@ -137,9 +172,11 @@ def cast_params(cfg, params, dtype=None, device=None):
     ``layers.dense`` (and the MoE expert products) cast their weights on every
     call; eagerly that would re-cast every weight at every step. Cast once, the
     per-call cast is the identity and the numbers are the same. The leaves under
-    ``_FP32_KEYS`` stay fp32: the norm scales (``apply_norm`` multiplies in fp32)
-    and the MoE router (routing is computed in fp32 from it; rounded, it would
-    choose other experts). With ``device`` every leaf is also moved there.
+    ``_FP32_KEYS`` stay fp32: the norm scales (``apply_norm`` multiplies in fp32),
+    the MoE router (routing is computed in fp32 from it; rounded, it would
+    choose other experts) and the Mamba2 leaves ``mamba_apply`` computes with in
+    fp32 (rounded, they would give other numbers with no error). With
+    ``device`` every leaf is also moved there.
     """
     dt = layers.to_dtype(dtype or cfg.compute_dtype)
 
@@ -163,11 +200,37 @@ def cast_params(cfg, params, dtype=None, device=None):
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device="cpu"):
     _require_ported(cfg)
     hd, hkv = cfg.head_dim, cfg.num_kv_heads
-    shape = (cfg.num_layers, batch, max_seq, hkv, hd)
     dt = layers.to_dtype(dtype)
+    if cfg.family == "hybrid":
+        # the Mamba2 states are fp32 whatever the compute type, as in the reference
+        shape = (cfg.hybrid_groups, batch, max_seq, hkv, hd)
+        state = partial(mamba.mamba_state_init, cfg, batch, device=device)
+        return {"prologue": [state() for _ in range(cfg.hybrid_prologue)],
+                "groups": [[state() for _ in range(cfg.hybrid_mamba_per_group)]
+                           for _ in range(cfg.hybrid_groups)],
+                "attn_k": torch.zeros(shape, dtype=dt, device=device),
+                "attn_v": torch.zeros(shape, dtype=dt, device=device),
+                "idx": 0}
+    shape = (cfg.num_layers, batch, max_seq, hkv, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "idx": 0}
+
+
+def write_slot(cfg, cache, slot: int, one):
+    """Copies the tensors of ``one``, a cache of one sequence, into row ``slot``
+    of the batched ``cache``, in place (the slot is the axis after the layer
+    dims, where the reference's engine finds the slot count meeting 1). ``idx``
+    is left to the caller."""
+    if cfg.family == "hybrid":
+        for big, small in zip(tree.leaves([cache["prologue"], cache["groups"]]),
+                              tree.leaves([one["prologue"], one["groups"]])):
+            big[slot] = small[0]
+        keys = ("attn_k", "attn_v")
+    else:
+        keys = ("k", "v")
+    for key in keys:
+        cache[key][:, slot] = one[key][:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -194,18 +257,52 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     x = _embed_inputs(cfg, params, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    block = _checkpointed(partial(_block_apply, cfg=cfg, positions=positions,
-                                  attn_fn=attn_fn, mode=mode, moe_impl=moe_impl),
-                          remat)
     aux = 0.0
-    kvs = [] if collect_kv else None
-    for blk in params["blocks"]:
-        x, kv, a = block(blk, x)
-        aux = aux + a
-        if collect_kv:
-            kvs.append(kv)
+    if cfg.family == "hybrid":
+        x, kvs = _hybrid_stack(cfg, params, x, positions, attn_fn=attn_fn, remat=remat,
+                               mode=mode)
+        kvs = kvs if collect_kv else None
+    else:
+        block = _checkpointed(partial(_block_apply, cfg=cfg, positions=positions,
+                                      attn_fn=attn_fn, mode=mode, moe_impl=moe_impl),
+                              remat)
+        kvs = [] if collect_kv else None
+        for blk in params["blocks"]:
+            x, kv, a = block(blk, x)
+            aux = aux + a
+            if collect_kv:
+                kvs.append(kv)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return x, aux, kvs
+
+
+def _hybrid_stack(cfg, params, x, positions, *, attn_fn, remat, mode):
+    """The hybrid stack of ``apply_lm``: returns (x, (prologue states, [(group's
+    states, shared block's (k, v))]))."""
+    mlayer = partial(_mamba_layer_apply, cfg=cfg)
+    # under grad the layers inside a group are always rematerialised in full
+    # (unless remat is "none"), as in the reference
+    inner = _checkpointed(mlayer, "full" if remat != "none" else "none")
+    shared = params["shared_attn"]
+
+    def group(blks, h):
+        states = []
+        for blk in blks:
+            h, st = inner(blk, h)
+            states.append(st)
+        h, kv, _ = _block_apply(shared, h, cfg, positions=positions, attn_fn=attn_fn,
+                                mode=mode)
+        return h, states, kv
+
+    layer, gbody = _checkpointed(mlayer, remat), _checkpointed(group, remat)
+    pro_states, groups = [], []
+    for blk in params["prologue"]:
+        x, st = layer(blk, x)
+        pro_states.append(st)
+    for blks in params["groups"]:
+        x, states, kv = gbody(blks, x)
+        groups.append((states, kv))
+    return x, (pro_states, groups)
 
 
 def unembed(cfg, params, hidden):
@@ -226,9 +323,15 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     max_seq = max_seq or S
     cache = init_cache(cfg, B, max_seq, dtype=cfg.compute_dtype,
                        device=hidden.device)
+    if cfg.family == "hybrid":
+        pro_states, groups = kvs
+        cache["prologue"] = pro_states
+        cache["groups"] = [states for states, _ in groups]
+        kvs = [kv for _, kv in groups]
+    ks, vs = ("attn_k", "attn_v") if cfg.family == "hybrid" else ("k", "v")
     for i, (k, v) in enumerate(kvs):
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
+        cache[ks][i, :, :S] = k.to(cache[ks].dtype)
+        cache[vs][i, :, :S] = v.to(cache[vs].dtype)
     cache["idx"] = S
     return hidden, cache
 
@@ -244,10 +347,22 @@ def decode_lm(cfg, params, cache, tokens, *, moe_impl: str = "einsum", mode=None
     x = _embed_inputs(cfg, params, tokens, None)
     idx = int(cache["idx"])
     positions = torch.full((1, 1), idx, dtype=torch.int64, device=x.device)
-    for i, blk in enumerate(params["blocks"]):
-        x, _, _ = _block_apply(blk, x, cfg, positions=positions,
-                               kv=(cache["k"][i], cache["v"][i]),
-                               cache_index=idx, mode=mode, moe_impl=moe_impl)
+    if cfg.family == "hybrid":
+        states = cache["prologue"]
+        for i, blk in enumerate(params["prologue"]):
+            x, states[i] = _mamba_layer_apply(blk, x, cfg, state=states[i])
+        for g, blks in enumerate(params["groups"]):
+            states = cache["groups"][g]
+            for i, blk in enumerate(blks):
+                x, states[i] = _mamba_layer_apply(blk, x, cfg, state=states[i])
+            x, _, _ = _block_apply(params["shared_attn"], x, cfg, positions=positions,
+                                   kv=(cache["attn_k"][g], cache["attn_v"][g]),
+                                   cache_index=idx, mode=mode)
+    else:
+        for i, blk in enumerate(params["blocks"]):
+            x, _, _ = _block_apply(blk, x, cfg, positions=positions,
+                                   kv=(cache["k"][i], cache["v"][i]),
+                                   cache_index=idx, mode=mode, moe_impl=moe_impl)
     cache["idx"] = idx + 1
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return unembed(cfg, params, x), cache

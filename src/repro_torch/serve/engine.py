@@ -14,7 +14,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import api
+from repro_torch.models import api, transformer
 from repro_torch.serve.decode import make_serve_step
 
 
@@ -99,9 +99,7 @@ class ServeEngine:
                                device=self.device)[None]
         _, cache1 = api.prefill(self.cfg, self.params, {"tokens": toks},
                                 max_seq=self.max_seq, mode=self.mode)
-        # the cache layout is (L, B, S_max, Hkv, hd): the slot is axis 1
-        self.cache["k"][:, slot] = cache1["k"][:, 0]
-        self.cache["v"][:, slot] = cache1["v"][:, 0]
+        transformer.write_slot(self.cfg, self.cache, slot, cache1)
         # as in the reference engine: the engine-wide index follows the newest
         # prompt, and the prompt's last token is fed again as the first decode input
         self.cache["idx"] = cache1["idx"]

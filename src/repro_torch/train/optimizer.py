@@ -5,7 +5,9 @@ The formulas are the reference's (``src/repro/train/optimizer.py``), not
 ``torch.optim.AdamW`` with ``clip_grad_norm_``: the clip here scales by
 ``min(1, clip / max(norm, 1e-9))`` where torch's uses ``clip / (norm + 1e-6)``,
 and the decay mask goes by the leaf's key path (no decay on ``b``, ``scale``
-or ``bias``, nor on any leaf of fewer than 2 dims). ``apply_updates`` updates
+or ``bias``, nor on any leaf of fewer than 2 dims as the reference stores it:
+its layers are stacked, so a layer's 1-d leaf has 2 dims there and is decayed,
+``reference_ndim``). ``apply_updates`` updates
 the parameters and the moments in place (``torch._foreach_*``), where the
 reference returns new trees; the step count stays a 0-d int32 tensor on the
 parameters' device, so no step reads a number back from the card.
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import tree
+from repro_torch.models.transformer import JAX_STACKED_DIMS
 
 
 @dataclass(frozen=True)
@@ -85,6 +88,14 @@ def _decay_mask(path) -> bool:
     return str(path[-1]) not in ("b", "scale", "bias")
 
 
+def reference_ndim(path, p) -> int:
+    """The rank the reference's decay rule sees: ``p``'s own, plus the layer
+    dims the JAX package stacks the leaf's subtree on. So a Mamba2 layer's
+    ``A_log``, ``D``, ``dt_bias`` and ``conv_b`` are decayed there and here,
+    the shared attention block's 1-d leaves (not stacked) are not."""
+    return p.dim() + JAX_STACKED_DIMS.get(path[0], 0)
+
+
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     """AdamW step. ``grads`` has the structure of ``params``; its fp32 tensors
@@ -116,7 +127,8 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     torch._foreach_add_(den, cfg.eps)
     delta = torch._foreach_div(ms, bc1)
     torch._foreach_div_(delta, den)
-    decay = [i for i, (path, p) in enumerate(named) if _decay_mask(path) and p.dim() >= 2]
+    decay = [i for i, (path, p) in enumerate(named)
+             if _decay_mask(path) and reference_ndim(path, p) >= 2]
     if decay and cfg.weight_decay:
         torch._foreach_add_([delta[i] for i in decay], [ps[i].float() for i in decay],
                             alpha=cfg.weight_decay)

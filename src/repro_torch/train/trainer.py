@@ -10,8 +10,8 @@ compute type inside the loss. The step updates the state's tensors in place
 tensors: reading one waits for the card.
 
 The reference's ``grad_specs`` (the gradient accumulator's sharding) has no
-counterpart: one card has nothing to shard. The dense, moe and vlm families
-are ported; ``init_state`` and ``make_loss_fn`` raise for the others.
+counterpart: one card has nothing to shard. The dense, moe, vlm and hybrid
+families are ported; ``init_state`` and ``make_loss_fn`` raise for the others.
 """
 from __future__ import annotations
 

@@ -152,6 +152,36 @@ def test_train_resume_bit_identical(tmp_path):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6)
 
 
+def test_hybrid_train_state_saves_and_resumes(tmp_path):
+    """A zamba2 train state (nested lists of Mamba2 layers, one shared block)
+    saved after 2 steps and restored into other weights resumes as an
+    uninterrupted run, and crosses the JAX layout and back unchanged."""
+    cfg = tregistry.get("zamba2-7b").reduced()
+    run = _run_cfg(remat="full")
+    step_fn = ttrainer.make_train_step(cfg, run)
+    data = DataIterator(cfg, batch=2, seq=16)
+    batches = [{k: torch.from_numpy(v) for k, v in next(data).items()} for _ in range(4)]
+
+    s_a = ttrainer.init_state(cfg, run, 0, device="cpu")
+    for b in batches:
+        s_a, _ = step_fn(s_a, b)
+    s_b = ttrainer.init_state(cfg, run, 0, device="cpu")
+    for b in batches[:2]:
+        s_b, _ = step_fn(s_b, b)
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(2, s_b)
+    _, s_b2 = mgr.restore_latest(ttrainer.init_state(cfg, run, 1, device="cpu"))
+    assert int(s_b2.opt_state.step) == 2
+    again = compat.train_state_from_jax(cfg, compat.train_state_to_jax(cfg, s_b2),
+                                        device="cpu")
+    for a, b in zip(tree.leaves(again), tree.leaves(s_b2)):
+        assert torch.equal(a.detach(), b.detach())
+    for b in batches[2:]:
+        again, _ = step_fn(again, b)
+    for a, b in zip(tree.leaves(s_a), tree.leaves(again)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # hand-over of a train state
 # ---------------------------------------------------------------------------

@@ -88,7 +88,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             importlib.import_module(n)
         need = {"repro_torch.compat", "repro_torch.configs.registry", "repro_torch.models.layers",
                 "repro_torch.models.attention", "repro_torch.models.transformer",
-                "repro_torch.models.api", "repro_torch.models.moe", "repro_torch.kernels.ref",
+                "repro_torch.models.api", "repro_torch.models.moe", "repro_torch.models.mamba",
+                "repro_torch.kernels.ref",
                 "repro_torch.kernels.ops",
                 "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.flash_decode", "repro_torch.serve.decode",

@@ -199,7 +199,7 @@ def test_prefill_through_explicit_attn_fn_and_reference_mode_agree():
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("zamba2-7b", "hybrid"), ("rwkv6-7b", "ssm"), ("whisper-large-v3", "encdec")])
+    ("rwkv6-7b", "ssm"), ("whisper-large-v3", "encdec")])
 def test_unported_family_raises(arch, family):
     cfg = tregistry.get(arch).reduced()
     assert cfg.family == family
@@ -223,6 +223,27 @@ def test_moe_and_vlm_configs_initialise(arch, family):
         assert a.shape == s.shape and a.dtype == np.float32
     cache = tapi.init_cache(ct, 1, 8, device="cpu")
     assert cache["k"].shape == (ct.num_layers, 1, 8, ct.num_kv_heads, ct.head_dim)
+
+
+def test_hybrid_config_initialises():
+    """Once refused as unported: now a seeded init shaped as the JAX package's
+    (prologue and groups stacked, one shared attention block), and a cache of
+    fp32 Mamba2 states beside the shared block's K/V."""
+    cj, ct = jregistry.get("zamba2-7b").reduced(), tregistry.get("zamba2-7b").reduced()
+    assert ct.family == "hybrid"
+    params = tapi.init(ct, 0, device="cpu")
+    shapes = jax.eval_shape(lambda: japi.init(cj, jax.random.PRNGKey(0)))
+    back = compat.params_to_jax(ct, params)
+    assert jax.tree.structure(back) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(back), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == np.float32
+    cache = tapi.init_cache(ct, 1, 8, device="cpu")
+    jcache = jax.eval_shape(lambda: japi.init_cache(cj, 1, 8))
+    assert cache["attn_k"].shape == jcache["attn_k"].shape
+    assert cache["attn_k"].dtype == torch.bfloat16
+    st = cache["groups"][0][0]
+    assert st["ssm"].shape == jcache["groups"]["ssm"].shape[2:]
+    assert st["conv"].dtype == st["ssm"].dtype == torch.float32
 
 
 def test_seeded_init_is_reproducible_and_shaped_like_jax():

@@ -177,7 +177,7 @@ def test_launcher_flags(capsys):
     assert parse([]).device == "cuda" and parse([]).arch == "qwen2.5-3b"
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b", "zamba2-7b"])
 def test_launcher_serves_moe_and_vlm(arch, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--device", "cpu", "--arch", arch, "--requests", "2", "--slots", "2",
@@ -185,7 +185,8 @@ def test_launcher_serves_moe_and_vlm(arch, capsys):
     out = capsys.readouterr().out
     assert f"served 2 requests / 4 tokens of {arch}-reduced on cpu in" in out
     # the prediction's group size is the config's: 48 / 8 = 6 for dbrx at full width
-    assert tregistry.get(arch).q_group_size == {"dbrx-132b": 6, "pixtral-12b": 4}[arch]
+    assert tregistry.get(arch).q_group_size == {"dbrx-132b": 6, "pixtral-12b": 4,
+                                                "zamba2-7b": 1}[arch]
     assert serve.decode_prediction(tregistry.get(arch).reduced(), 2, 16) + "\n" in out
 
 

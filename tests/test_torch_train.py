@@ -228,7 +228,7 @@ def test_attention_weights_get_gradients():
 
 
 def test_non_dense_families_are_refused():
-    cfg = tregistry.get("zamba2-7b").reduced()
+    cfg = tregistry.get("rwkv6-7b").reduced()
     with pytest.raises(NotImplementedError, match="not ported"):
         ttrainer.make_loss_fn(cfg, ttrainer.RunConfig())
     with pytest.raises(NotImplementedError, match="not ported"):

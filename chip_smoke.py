@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
            flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
            flash_decode_sm90.cu), and timed at the serving shapes and at a
            long context (the bf16 kernels also at zamba2-7b's shapes, head_dim
-           112 and G = 1, and the bf16 forward at olmo-1b's training shape)
+           112 and G = 1, and the bf16 forward at olmo-1b's training shape;
+           both types at whisper-large-v3's: the encoder's non-causal
+           1500 x 1500, the cross-attention's 64 x 1500, and a decode step's
+           cross-attention at cache_len 1500, D 64, G = 1)
            beside its plain version, one library call (a
            yardstick only: the port never calls it) and its roofline bound.
            Kernel and library times are device times (kernel durations from
@@ -53,6 +56,26 @@ Phases, each printing one JSON line:
            forward does (against fp32 P, and at full depth, readings); one
            full-width Mamba2 layer's 512 tokens as one chunked call and as 512
            one-token calls: the final state within 1e-3, the outputs within 2e-2
+  encdec   whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+           layers, d_model 1280, 20 / 20 heads, head_dim 64), bf16, random
+           seeded weights: 4 sequences of 1500 stub frames and 64-token prompts
+           through the serve steps' prefill, then 31 greedy decode steps (32 new
+           tokens; ServeEngine refuses the family, as the reference's cannot
+           serve it); asserts 96 forward launches a prefill (32 encoder
+           non-causal 1500 x 1500, 32 decoder causal 64 x 64, 32 cross
+           non-causal 64 x 1500) and 64 decode launches a step (32 self, 32
+           cross at cache_len 1500), all bf16; peak memory, one profiled decode
+           step. Check: at 4 + 4 layers, one sequence's last prefill and first
+           decode logits within LOGITS_TOL of the plain route that rounds P to
+           bf16 as the bf16 forward does (at full depth, a reading)
+  ssm      rwkv6-7b at full width and depth (32 layers, d_model 4096), its
+           blocks fp32, random seeded weights: the serve phase's traffic through
+           ServeEngine; asserts no attention-kernel launch; peak memory, one
+           profiled decode step beside its bound (the fp32 block weights' and
+           the bf16 unembedding's bytes). Checks: at 2 layers, one decode step's
+           logits within LOGITS_TOL of the full forward's; one full-width
+           time_mix's 512 tokens as one chunked call and as 512 one-token calls:
+           the final state within 1e-3, the outputs within 2e-3
   train    olmo-1b at full width and depth, bf16 compute on fp32 master weights:
            5 AdamW steps of batch 4 x 512 tokens (remat "full"); the attention
            gradients through the kernel route against mode="reference" at the
@@ -95,10 +118,11 @@ from repro_torch.core.simfa import simulate_fa3               # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
-from repro_torch.models import api, mamba, moe                # noqa: E402
+from repro_torch.models import api, mamba, moe, rwkv          # noqa: E402
 from repro_torch.models.attention import knob_attention       # noqa: E402
+from repro_torch.serve.decode import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
-from repro_torch.data.synthetic import DataIterator           # noqa: E402
+from repro_torch.data.synthetic import DataIterator, token_batch  # noqa: E402
 from repro_torch.train import optimizer as opt                # noqa: E402
 from repro_torch.train import trainer                         # noqa: E402
 
@@ -118,6 +142,9 @@ FWD_GRID = [  # B, H, Hkv, L, S, D
     (1, 4, 1, 64, 384, 128),       # L != S (non-causal only)
     (1, 2, 2, 192, 192, 112),      # head_dim 112
     (1, 16, 2, 512, 512, 128),     # serving shape, G = 8
+    (4, 20, 20, 64, 64, 64),       # whisper-large-v3's decoder prefill, G = 1
+    (4, 20, 20, 64, 1500, 64),     # its cross-attention, L != S, S ragged
+    (4, 20, 20, 1500, 1500, 64),   # its encoder (non-causal), ragged
 ]
 FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 16, 2, 1024, 1024, 64),
@@ -147,6 +174,8 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (1, 16, 2, 32768, 128, 32768), # the longest context of qwen2.5-3b
     (4, 48, 8, 1024, 128, 520),    # dbrx-132b's decode step, G = 6
     (4, 32, 32, 1024, 112, 520),   # zamba2-7b's decode step, G = 1, D 112
+    (4, 20, 20, 128, 64, 80),      # whisper-large-v3's decoder self-attention step
+    (4, 20, 20, 1500, 64, 1500),   # its cross-attention step: the full encoder rows
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -164,11 +193,19 @@ HYBRID = dict(arch="zamba2-7b", requests=8, prompt_len=512, slots=4, max_new=16,
               max_seq=1024, check_groups=2)
 SSD_TOL = dict(state=1e-3, out=2e-2)   # the reference's own chunked-against-recurrent
                                        # tolerances (tests/test_models.py)
+ENCDEC = dict(arch="whisper-large-v3", batch=4, prompt_len=64, new_tokens=32, max_seq=128,
+              check_layers=4)
+SSM = dict(arch="rwkv6-7b", requests=8, prompt_len=512, slots=4, max_new=16, max_seq=1024,
+           check_layers=2)
+WKV_TOL = dict(state=1e-3, out=2e-3)   # the reference's test_rwkv_chunked_matches_recurrent
 SERVE_FWD = dict(B=1, H=16, Hkv=2, L=512, D=128)
 LONG_FWD = (2, 32, 8, 2048, 128)   # B, H, Hkv, L = S, D
 ZAMBA_FWD = (1, 32, 32, 512, 112)  # zamba2-7b's shared block's prefill
+WHISPER_ENC = (4, 20, 20, 1500, 1500, 64)   # B, H, Hkv, L, S, D: the encoder, non-causal
+WHISPER_CROSS = (4, 20, 20, 64, 1500, 64)   # the prefill's cross-attention, non-causal
 SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
+WHISPER_DEC = dict(B=4, H=20, Hkv=20, S_max=1500, D=64, clen=1500, layers=32)  # cross
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
 
 
@@ -229,6 +266,24 @@ def device_rows(prof):
     return rows
 
 
+def _profile_window(fn, iters):
+    """(summed ms, kernel count, rows) of the device kernels of ``iters`` calls
+    of ``fn``, traced after one untraced profiler step: a window opened cold
+    has been seen to miss its first kernel record, every time, at one shape."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    rows = [r for r in device_rows(prof) if not r[2].startswith("ProfilerStep")]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
+
+
 def device_profile(fn, iters=20, warmup=3, attempts=3, calls=1):
     """Device time of one call of ``fn`` and the device kernels that each of the
     ``calls`` wrapper calls inside ``fn`` launches: the durations of the kernels
@@ -237,21 +292,16 @@ def device_profile(fn, iters=20, warmup=3, attempts=3, calls=1):
     the host's enqueue rate cannot hide the kernels' own time. The profiler has
     been seen to return a window with kernel records missing: a window whose
     kernel count is not a whole multiple of ``iters * calls`` is taken again."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = device_rows(prof)
-        launched = sum(r[1] for r in rows)
+        busy, launched, rows = _profile_window(fn, iters)
         if launched and launched % (iters * calls) == 0:
-            return sum(r[0] for r in rows) / iters, launched // (iters * calls)
+            return busy / iters, launched // (iters * calls)
     raise AssertionError(f"the profiler recorded no whole window of {iters} x {calls} "
-                         f"calls in {attempts} attempts")
+                         f"calls in {attempts} attempts; the last held {launched} kernels: "
+                         f"{[(n, name[:60]) for _, n, name in rows]}")
 
 
 def device_ms(fn, iters=20, warmup=3, attempts=3):
@@ -434,27 +484,34 @@ def time_long_decode(rng, dt):
                 bound_ms=bound_ms, share_of_3_35_tb_s=bound_ms / ms), err
 
 
-def time_fwd(rng, shape, dt, plain=False):
-    """The forward through ops at ``shape`` (B, H, Hkv, L = S, D), causal: device
-    time beside the library call's and the bound; with ``plain`` also checked
-    against and timed beside the plain version. Returns (timings, error)."""
+def time_fwd(rng, shape, dt, plain=False, S=None, causal=True):
+    """The forward through ops at ``shape`` (B, H, Hkv, L, D) against ``S`` keys
+    (L by default): device time beside the library call's and the bound; with
+    ``plain`` also the wrapper's host time, and checked against and timed
+    beside the plain version. Returns (timings, error)."""
     B, H, Hkv, L, D = shape
+    S = S or L
     q = randn(rng, (B, L, H, D), dt)
-    k = randn(rng, (B, L, Hkv, D), dt)
-    v = randn(rng, (B, L, Hkv, D), dt)
+    k = randn(rng, (B, S, Hkv, D), dt)
+    v = randn(rng, (B, S, Hkv, D), dt)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    out = dict(at=f"B{B} H{H} Hkv{Hkv} L=S={L} D{D} causal {str(dt)[6:]}",
-               ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=True)),
+    lens = f"L=S={L}" if S == L else f"L={L} S={S}"
+    out = dict(at=f"B{B} H{H} Hkv{Hkv} {lens} D{D} {'causal' if causal else 'non-causal'} "
+                  f"{str(dt)[6:]}",
+               ms=device_ms(lambda: ops.mha_forward(q, k, v, causal=causal)),
                sm_clock=sm_clock(),
-               library_ms=device_ms(lambda: sdpa(qt, kt, vt, True)))
-    out["bound_ms"], out["bound_by"] = bound(*fwd_costs(B, H, Hkv, L, L, D, dt, True))
+               library_ms=device_ms(lambda: sdpa(qt, kt, vt, causal)))
+    out["bound_ms"], out["bound_by"] = bound(*fwd_costs(B, H, Hkv, L, S, D, dt, causal))
     err = 0.0
     if plain:
-        got = ops.mha_forward(q, k, v, causal=True)
+        got = ops.mha_forward(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err = compare(got, ops.mha_forward(q, k, v, causal=True, mode="reference"), dt,
-                      f"forward {out['at']} via ops")
-        out["plain_ms"] = time_ms(lambda: ops.mha_forward(q, k, v, causal=True,
+        want = ops.mha_forward(q, k, v, causal=causal, mode="reference")
+        err = compare(got, want, dt, f"forward {out['at']} via ops")
+        compare(sdpa(qt, kt, vt, causal).transpose(1, 2), want, dt,
+                f"library yardstick (forward {out['at']})")
+        out["wrapper_ms"] = time_ms(lambda: ops.mha_forward(q, k, v, causal=causal), iters=20)
+        out["plain_ms"] = time_ms(lambda: ops.mha_forward(q, k, v, causal=causal,
                                                           mode="reference"), iters=10)
     return out, err
 
@@ -548,6 +605,16 @@ def phase_kernels():
     fwd["flash_fwd"]["zamba2"], err = time_fwd(rng, ZAMBA_FWD, bf16, plain=True)
     worst["flash_fwd"] = max(worst["flash_fwd"], err)
     cases["flash_fwd"] += 1
+    # both kernels at whisper-large-v3's non-causal shapes (the encdec phase's
+    # prefill): the encoder's L = S = 1500 and the cross-attention's L 64, S 1500
+    for dt in (torch.bfloat16, torch.float32):
+        name = "flash_fwd" if dt == torch.bfloat16 else "flash_fwd_f32"
+        for key, (B, H, Hkv, L, S, D) in (("whisper_enc", WHISPER_ENC),
+                                          ("whisper_cross", WHISPER_CROSS)):
+            fwd[name][key], err = time_fwd(rng, (B, H, Hkv, L, D), dt, plain=True, S=S,
+                                           causal=False)
+            worst[name] = max(worst[name], err)
+            cases[name] += 1
 
     # decode in both types at the serving shape and at a long cache
     dec = {}
@@ -565,6 +632,17 @@ def phase_kernels():
         "slices, cold L2".format(**z))
     worst["flash_decode"] = max(worst["flash_decode"], err)
     cases["flash_decode"] += 2
+    # both decode kernels at whisper-large-v3's cross-attention step: one token
+    # against the 1500 encoder rows (G = 1, D 64), over the decoder's 32 layers
+    w = WHISPER_DEC
+    for dt in (torch.bfloat16, torch.float32):
+        name = "flash_decode" if dt == torch.bfloat16 else "flash_decode_f32"
+        dec[name]["whisper_cross"], err = time_decode(rng, dt, w)
+        dec[name]["whisper_cross"]["at"] = (
+            "B{B} H{H} Hkv{Hkv} S_max{S_max} cache_len{clen} D{D} ".format(**w)
+            + f"{str(dt)[6:]}, {w['layers']} layers' slices, cold L2")
+        worst[name] = max(worst[name], err)
+        cases[name] += 2
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
           "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,
@@ -1130,6 +1208,246 @@ def phase_hybrid(kernels):
           "profile_decode_step": prof, "sample_tokens": reqs[0].out})
 
 
+@contextlib.contextmanager
+def plain_forward_rounds_p():
+    """Under mode="reference" the forward's plain version rounds P (and V) to
+    bf16 over 128-key tiles before P·V, as the bf16 forward kernel does. An
+    encdec model's prefill takes no attn_fn (as the reference's), so the route
+    is set here, in the plain version ``ops.mha_forward`` calls."""
+    plain = fa.flash_attention_plain
+    fa.flash_attention_plain = lambda *a, **kw: plain(*a, **dict(kw, pv_bf16=True))
+    try:
+        yield
+    finally:
+        fa.flash_attention_plain = plain
+
+
+def encdec_logits(cfg, params, batch, max_seq, mode=None):
+    """One sequence's prefill and first decode step through one attention route:
+    (last prefill position's logits, first decode step's logits)."""
+    with torch.no_grad():
+        hidden, cache = api.prefill(cfg, params, batch, max_seq=max_seq, mode=mode)
+        first, _ = api.decode(cfg, params, cache, batch["tokens"][:, -1:], mode=mode)
+        return api.unembed(cfg, params, hidden[:, -1:]).float(), first.float()
+
+
+def encdec_routes(cfg, params, batch, max_seq):
+    """The kernels against the plain route that rounds P to bf16 as the bf16
+    forward does and against mode="reference" (fp32 P), and the two plain routes
+    against each other (the scale of a right answer)."""
+    kernel = encdec_logits(cfg, params, batch, max_seq)
+    with plain_forward_rounds_p():
+        plain_bf16_p = encdec_logits(cfg, params, batch, max_seq, mode="reference")
+    plain = encdec_logits(cfg, params, batch, max_seq, mode="reference")
+    return {"kernel_vs_plain_bf16_p": logits_far(cfg, kernel, plain_bf16_p),
+            "kernel_vs_plain_fp32_p": logits_far(cfg, kernel, plain),
+            "plain_bf16_p_vs_plain_fp32_p": logits_far(cfg, plain_bf16_p, plain)}
+
+
+def phase_encdec(kernels):
+    """Full-width, full-depth whisper-large-v3 through both bf16 kernels on
+    every attention: the encoder's, the decoder's and the cross-attention (see
+    the module docstring)."""
+    e = ENCDEC
+    cfg = registry.get(e["arch"])
+    B, P, n_new, max_seq = e["batch"], e["prompt_len"], e["new_tokens"], e["max_seq"]
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init(cfg, 0, device=DEV)
+    served = api.cast_params(cfg, params, device=DEV)   # as ServeEngine would
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    try:
+        ServeEngine(cfg, served, device=DEV)
+    except NotImplementedError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("encdec: ServeEngine took an encdec model")
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in token_batch(cfg, batch=B, seq=P, step=0).items() if k != "labels"}
+    prefill, step = make_prefill_step(cfg, max_seq=max_seq), make_serve_step(cfg)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = prefill(served, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_counts = read_counts()
+    out, decode_ms = [tok], []
+    for _ in range(n_new - 1):
+        t0 = time.perf_counter()
+        tok, cache = step(served, cache, tok)
+        out.append(tok)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, L = len(decode_ms), cfg.dec_layers
+    want_fwd = cfg.enc_layers + 2 * L
+    if (pre_counts != {"flash_fwd": want_fwd, "flash_fwd_f32": 0, "flash_decode": 0,
+                       "flash_decode_f32": 0}
+            or counts["flash_fwd"] != want_fwd or counts["flash_decode"] != 2 * L * steps
+            or fa.launches != want_fwd or fd.launches != counts["flash_decode"]):
+        raise AssertionError(f"encdec: launches {pre_counts} in the prefill, {counts} in all "
+                             f"({fa.launches} forward, {fd.launches} decode); want {want_fwd} "
+                             f"on the bf16 forward and {steps} x {2 * L} on the bf16 decode")
+    toks = torch.cat(out, dim=1)
+    if toks.shape != (B, n_new) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"encdec: bad tokens {toks.shape} {toks[0].tolist()}")
+    for kern in kernels:
+        if kern["name"] in ("flash_fwd", "flash_decode"):
+            kern["launches_encdec"] = counts[kern["name"]]
+    with torch.no_grad():           # two more decode steps of the 4 sequences: untraced, traced
+        prof = profiled(lambda: api.decode(cfg, served, cache, tok),
+                        watch=("flash_decode_sm90",))
+    one = {k: v[:1] for k, v in batch.items()}
+    full_depth = encdec_routes(cfg, served, one, max_seq)
+    n_params = sum(p.numel() for p in tree.leaves(served))
+    del served, cache
+    torch.cuda.empty_cache()
+
+    # the check: the kernels against the plain bf16-P route at a cut depth
+    n = e["check_layers"]
+    cut = dataclasses.replace(cfg, num_layers=n, enc_layers=n, dec_layers=n)
+    params = api.cast_params(cut, api.init(cut, 1, device=DEV))
+    check = encdec_routes(cut, params, one, max_seq)
+    del params
+    torch.cuda.empty_cache()
+    held = check["kernel_vs_plain_bf16_p"]
+    if any(held[w]["worst_ratio_to_tol"] > 1 for w in held):
+        raise AssertionError(f"encdec check: logits beyond LOGITS_TOL of the plain bf16-P "
+                             f"route at {n} + {n} layers; {check}")
+    emit({"phase": "encdec", "model": cfg.name, "enc_layers": cfg.enc_layers,
+          "dec_layers": cfg.dec_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "frames": cfg.frontend_len,
+          "compute_dtype": cfg.compute_dtype, "params": n_params,
+          "allocated_gb_before_init": allocated_gb, "init_seconds": round(init_s, 2),
+          "batch": B, "prompt_len": P, "new_tokens": n_new, "max_seq": max_seq,
+          "decode_steps": steps, "launches_prefill": pre_counts, "launches": counts,
+          "prefill_ms": prefill_ms, "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step_first": decode_ms[0],
+          "tokens_per_s": B * n_new / ((prefill_ms + sum(decode_ms)) / 1e3),
+          "peak_memory_gb": peak_gb, "serve_engine_refusal": refusal,
+          "check_layers": n, "logits_tolerance": LOGITS_TOL, "check": check,
+          "full_depth_reading": full_depth, "profile_decode_step": prof,
+          "sample_tokens": toks[0].tolist()})
+
+
+def wkv_check(cfg):
+    """One full-width time_mix takes a prompt two ways: one chunked call (chunks
+    of 64) and one-token calls carried through the state. The final state must
+    agree at WKV_TOL["state"] and the outputs at WKV_TOL["out"], the reference's
+    own tolerances: TF32 products or a wrong carry between chunks break it."""
+    S = SSM["prompt_len"]
+    p = rwkv.rwkv_init(torch.Generator(device=DEV).manual_seed(8), cfg)["tmix"]
+    x = 0.5 * torch.randn((1, S, cfg.d_model), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(9))
+    st = rwkv.rwkv_state_init(cfg, 1, device=DEV)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_chunk, S_chunk, _ = rwkv.time_mix(p, x, cfg, S0=st["S"], x_prev=st["x_att"])
+        torch.cuda.synchronize()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        Sr, xp, ys = st["S"], st["x_att"], []
+        t0 = time.perf_counter()
+        for t in range(S):
+            y_t, Sr, xp = rwkv.time_mix(p, x[:, t:t + 1], cfg, S0=Sr, x_prev=xp)
+            ys.append(y_t)
+        y_seq = torch.cat(ys, dim=1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / S
+    out = {"tokens": S, "chunks": -(-S // 64), "tolerance": WKV_TOL,
+           "chunked_call_ms": chunk_ms, "one_token_call_ms": step_ms}
+    for what, got, want, tol in (("state", Sr, S_chunk, WKV_TOL["state"]),
+                                 ("out", y_seq, y_chunk, WKV_TOL["out"])):
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > tol + tol * want.abs()).any():
+            raise AssertionError(f"wkv check {what}: the recurrence and the chunked form "
+                                 f"differ on the card, max abs err {float(err.max()):.3e}")
+        out[f"{what}_max_abs_err"] = float(err.max())
+    return out
+
+
+def phase_ssm(kernels):
+    """Full-width, full-depth rwkv6-7b served through ServeEngine (see the module
+    docstring): no attention, its blocks fp32."""
+    m = SSM
+    cfg = registry.get(m["arch"])
+    n_req, prompt_len, slots, max_new, max_seq = (m[k] for k in (
+        "requests", "prompt_len", "slots", "max_new", "max_seq"))
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = api.init(cfg, 0, device=DEV)
+    eng = ServeEngine(cfg, params, slots=slots, max_seq=max_seq, device=DEV)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    reqs = make_requests(cfg, n_req, prompt_len, max_new, seed=10)
+
+    reset_counts()
+    t0 = time.time()
+    prefill_ms, decode_ms = drive(eng, reqs)
+    wall = time.time() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(counts.values()) or fa.launches or fd.launches or eng.steps == 0:
+        raise AssertionError(f"ssm: attention-kernel launches {counts} in an attention-free "
+                             f"model, or no decode step ({eng.steps})")
+    for r in reqs:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab_size for t in r.out):
+            raise AssertionError(f"ssm: request {r.rid}: bad output {r.out}")
+    blocks = [t for t in tree.leaves(eng.params["blocks"])]
+    if any(t.dtype != torch.float32 for t in blocks + tree.leaves(eng.params["ln0"])):
+        raise AssertionError("ssm: ServeEngine's cast rounded a block leaf")
+    # a decode step reads every fp32 block weight and the bf16 unembedding once
+    step_bytes = (sum(t.numel() * t.element_size() for t in blocks)
+                  + eng.params["unembed"]["w"].numel() * 2)
+    with torch.no_grad():           # two more decode steps of the 4 slots: untraced, traced
+        prof = profiled(lambda: api.decode(cfg, eng.params, eng.cache, eng.tokens))
+    n_params, steps = sum(p.numel() for p in tree.leaves(eng.params)), eng.steps
+    del eng
+    torch.cuda.empty_cache()
+
+    # the check: one decode step against the full forward at a cut depth
+    cut = dataclasses.replace(cfg, num_layers=m["check_layers"])
+    params = api.cast_params(cut, api.init(cut, 1, device=DEV))
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, prompt_len + 1))).to(DEV)
+    with torch.no_grad():
+        hidden, _ = api.forward_hidden(cut, params, {"tokens": toks}, remat="none")
+        full = api.unembed(cut, params, hidden[:, -1:]).float()
+        _, cache = api.prefill(cut, params, {"tokens": toks[:, :-1]}, max_seq=max_seq)
+        dec, _ = api.decode(cut, params, cache, toks[:, -1:])
+    err = (dec.float() - full).abs()
+    ratio = float((err / (LOGITS_TOL + LOGITS_TOL * full.abs())).max())
+    if not torch.isfinite(dec).all() or ratio > 1:
+        raise AssertionError(f"ssm check: decode logits beyond LOGITS_TOL of the full "
+                             f"forward's, max abs err {float(err.max()):.3e}")
+    del params, cache
+    torch.cuda.empty_cache()
+    wkv = wkv_check(cfg)
+    emit({"phase": "ssm", "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "d_ff": cfg.d_ff, "rwkv_head_dim": cfg.rwkv_head_dim,
+          "compute_dtype": cfg.compute_dtype, "params": n_params,
+          "allocated_gb_before_init": allocated_gb,
+          "requests": n_req, "prompt_len": prompt_len, "slots": slots, "max_new": max_new,
+          "max_seq": max_seq, "init_seconds": round(init_s, 2), "decode_steps": steps,
+          "launches": counts, "prefill_ms_per_request": prefill_ms,
+          "decode_ms_per_step_median": float(np.median(decode_ms)),
+          "decode_ms_per_step_first": decode_ms[0], "tokens_per_s": n_req * max_new / wall,
+          "wall_seconds": wall, "peak_memory_gb": peak_gb,
+          "decode_step_bytes": step_bytes, "decode_step_bound_ms": step_bytes / PEAK_BYTES * 1e3,
+          "check_layers": m["check_layers"], "logits_tolerance": LOGITS_TOL,
+          "check_decode_vs_forward": {"max_abs_err": float(err.max()),
+                                      "worst_ratio_to_tol": ratio},
+          "wkv_check": wkv, "profile_decode_step": prof, "sample_tokens": reqs[0].out})
+
+
 def attention_grads(rng, shape, dtype):
     """The forward output and q/k/v gradients of ``ops.mha_forward`` (model-side
     layout) through the kernel route against ``mode="reference"``, both under
@@ -1383,7 +1701,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,sim,serve,path,path_f32,moe,hybrid,train")
+                    default="device,build,kernels,sim,serve,path,path_f32,moe,hybrid,encdec,"
+                            "ssm,train")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1404,13 +1723,17 @@ def main(argv=None):
         phase_moe(kernels)
     if "hybrid" in phases:
         phase_hybrid(kernels)
+    if "encdec" in phases:
+        phase_encdec(kernels)
+    if "ssm" in phases:
+        phase_ssm(kernels)
     if "train" in phases:
         phase_train(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32",
-                                         "moe", "hybrid", "train"))
+                                         "moe", "hybrid", "encdec", "ssm", "train"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

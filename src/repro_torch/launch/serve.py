@@ -5,10 +5,14 @@
 
 ``--reduced`` (the default) serves the tiny same-family config; ``--full`` (or
 ``--no-reduced``) serves the architecture at its published size. Dense, moe,
-vlm and hybrid ``--arch`` values are served (a vlm on its tokens alone, as the
-JAX launcher serves it; ``--arch zamba2-7b`` is the hybrid). ``--full`` must fit
-one card: ``zamba2-7b`` does (5.63 B parameters, about 34 GB at the peak: the
-fp32 init plus the bf16 copy); at 40 layers ``dbrx-132b`` is 132 B parameters,
+vlm, hybrid and ssm ``--arch`` values are served (a vlm on its tokens alone, as
+the JAX launcher serves it; ``--arch zamba2-7b`` is the hybrid, ``rwkv6-7b``
+the ssm). An encdec ``--arch`` (``whisper-large-v3``) raises the engine's
+``NotImplementedError``: requests carry tokens alone, as in the JAX engine,
+which cannot serve it either. ``--full`` must fit one card: ``zamba2-7b`` does
+(5.63 B parameters, about 34 GB at the peak: the fp32 init plus the bf16 copy),
+and so does ``rwkv6-7b`` (7.58 B, about 31.5 GB: its blocks stay fp32, so the
+copy is the bf16 embeddings alone); at 40 layers ``dbrx-132b`` is 132 B parameters,
 528 GB in fp32 before the bf16 copy, and CUDA's out-of-memory error says so;
 ``chip_smoke.py`` serves it at 2 layers. ``--device``
 defaults to ``cuda`` and a missing card is an error; ``--device cpu`` runs the

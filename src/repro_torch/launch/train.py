@@ -5,13 +5,15 @@ watchdog calibrated off the first step, preemption-signal save.
         --batch 8 --seq 64 --steps 20
 
 ``--device`` defaults to ``cuda`` and a missing card is an error; ``--device
-cpu`` trains through the plain PyTorch path. Dense, moe, vlm and hybrid
-``--arch`` values train (the loss adds 0.01 x the MoE load-balance loss). A moe
+cpu`` trains through the plain PyTorch path. Every ``--arch`` value trains:
+dense, moe, vlm, hybrid, ssm and encdec (the loss adds 0.01 x the MoE
+load-balance loss; an encdec batch carries the stub front end's frames). A moe
 model at published width does not fit one card: one ``dbrx-132b`` layer with
 its embeddings is about 4.5 B parameters, about 72 GB of fp32 weights,
 gradients and AdamW moments before activations. Nor does ``zamba2-7b`` at
 published width: its 5.63 B parameters come to about 90 GB of fp32 weights,
-gradients and AdamW moments. The port runs on one device:
+gradients and AdamW moments, nor ``rwkv6-7b`` (7.58 B parameters, about
+121 GB). ``whisper-large-v3`` (1.62 B, about 26 GB) would. The port runs on one device:
 ``--dp`` and ``--tp`` other than 1 are refused (``parallel/`` is not ported).
 Before training it prints the simulator's attention prediction for the
 training workload on the H800 preset, where the JAX launcher prints its

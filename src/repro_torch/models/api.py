@@ -1,8 +1,8 @@
 """Family-dispatching model facade used by the train, serve and launch layers.
 
 Batch contract (all tensors):
-  train:   {"tokens": (B,S_tok), "labels": (B,S_tok), ["embeds"]}
-  prefill: {"tokens": (B,S_tok), ["embeds"]}
+  train:   {"tokens": (B,S_tok), "labels": (B,S_tok), ["embeds"|"frames"]}
+  prefill: {"tokens": (B,S_tok), ["embeds"|"frames"]}
   decode:  {"tokens": (B,1)} + cache
 
 Entry points run on the card: ``device`` defaults to ``"cuda"`` and a missing
@@ -14,7 +14,7 @@ from typing import Any, Dict, Union
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -27,20 +27,22 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _require_lm(cfg):
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"model family 'encdec' ({cfg.name}) is not ported to repro_torch yet")
+def require_ported(cfg):
+    """Raises ``NotImplementedError`` for a family the port has no model of."""
+    if cfg.family != "encdec":
+        transformer._require_ported(cfg)
 
 
 def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
     """Seeded fp32 parameters on ``device``. ``seed`` may be a ``torch.Generator``
     that already lives on that device."""
-    _require_lm(cfg)
+    require_ported(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+    if cfg.family == "encdec":
+        return encdec.init_encdec(cfg, gen)
     return transformer.init_lm(cfg, gen)
 
 
@@ -52,7 +54,12 @@ def forward_hidden(cfg, params, batch: Dict[str, Any], *, attn_fn=None,
                    remat: str = "full", moe_impl: str = "einsum", mode=None):
     """Forward to final hidden states. Returns (hidden, aux): aux is the MoE
     load-balance loss summed over the layers (0.0 for the other families)."""
-    _require_lm(cfg)
+    if cfg.family == "encdec":
+        enc_h = encdec.encode(cfg, params, batch["frames"], attn_fn=attn_fn,
+                              remat=remat, mode=mode)
+        hidden = encdec.decode_train(cfg, params, batch["tokens"], enc_h,
+                                     attn_fn=attn_fn, remat=remat, mode=mode)
+        return hidden, 0.0
     hidden, aux, _ = transformer.apply_lm(
         cfg, params, batch["tokens"], embeds=batch.get("embeds"),
         attn_fn=attn_fn, remat=remat, moe_impl=moe_impl, mode=mode)
@@ -60,21 +67,25 @@ def forward_hidden(cfg, params, batch: Dict[str, Any], *, attn_fn=None,
 
 
 def unembed(cfg, params, hidden):
-    _require_lm(cfg)
+    if cfg.family == "encdec":
+        return encdec.unembed(cfg, params, hidden)
     return transformer.unembed(cfg, params, hidden)
 
 
 def unembed_table(cfg, params):
     """(d, V) matrix used by the chunked loss."""
-    _require_lm(cfg)
-    if cfg.tie_embeddings:
+    if cfg.family == "encdec" or cfg.tie_embeddings:
         return params["emb"]["table"].T
     return params["unembed"]["w"]
 
 
 def prefill(cfg, params, batch, *, max_seq=None, remat: str = "full",
             attn_fn=None, mode=None):
-    _require_lm(cfg)
+    """Returns (hidden, cache). An encdec model ignores ``attn_fn``, as the
+    reference does: its prefill takes none."""
+    if cfg.family == "encdec":
+        return encdec.prefill_encdec(cfg, params, batch["frames"], batch["tokens"],
+                                     max_seq=max_seq, remat=remat, mode=mode)
     return transformer.prefill_lm(cfg, params, batch["tokens"],
                                   embeds=batch.get("embeds"),
                                   max_seq=max_seq, remat=remat,
@@ -82,12 +93,17 @@ def prefill(cfg, params, batch, *, max_seq=None, remat: str = "full",
 
 
 def decode(cfg, params, cache, tokens, *, mode=None):
-    _require_lm(cfg)
+    if cfg.family == "encdec":
+        return encdec.decode_encdec(cfg, params, cache, tokens, mode=mode)
     return transformer.decode_lm(cfg, params, cache, tokens, mode=mode)
 
 
-def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.bfloat16,
+def init_cache(cfg, batch: int, max_seq: int, *, s_enc: int = 0, dtype=torch.bfloat16,
                device="cuda"):
-    _require_lm(cfg)
-    return transformer.init_cache(cfg, batch, max_seq, dtype=dtype,
-                                  device=resolve_device(device))
+    """An empty cache on ``device``; an encdec model's cross K/V holds ``s_enc``
+    encoder rows (``cfg.frontend_len`` by default)."""
+    device = resolve_device(device)
+    if cfg.family == "encdec":
+        return encdec.init_dec_cache(cfg, batch, max_seq, s_enc or cfg.frontend_len,
+                                     dtype=dtype, device=device)
+    return transformer.init_cache(cfg, batch, max_seq, dtype=dtype, device=device)

@@ -1,9 +1,10 @@
 """Attention: GQA projections + FlashAttention-style chunked online softmax.
 
 ``flash_ref`` is the plain-PyTorch online-softmax implementation (algorithmically
-FlashAttention, looped over KV chunks). ``attn_apply`` sends self-attention to
-the hand-written kernels through ``kernels.ops``: prefill to ``mha_forward``,
-cached decode to ``decode_forward``.
+FlashAttention, looped over KV chunks). ``attn_apply`` sends attention to the
+hand-written kernels through ``kernels.ops``: prefill to ``mha_forward``,
+cached decode to ``decode_forward``, and cross-attention (``cross_attend``) to
+either, by the query's length.
 """
 from __future__ import annotations
 
@@ -174,27 +175,46 @@ def attn_init(gen, cfg):
     }
 
 
+def cross_attend(q, k, v, *, attn_fn=None, mode=None):
+    """Non-causal attention of q (B, L, H, D) over precomputed k/v (B, S, Hkv, D).
+
+    ``attn_fn`` where given, as in the reference. Otherwise the kernels, through
+    ``kernels.ops``: a one-token query (a decode step) reads k/v as a filled
+    cache of length S; a longer query takes the non-causal forward (L != S),
+    and so does one token under autograd, since the decode kernel has no
+    backward. A CUDA tensor takes the kernel or raises; a CPU tensor, or
+    ``mode="reference"``, the kernel's plain version.
+    """
+    if attn_fn is not None:
+        return attn_fn(q, k, v, causal=False)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if q.shape[1] == 1 and not needs_grad:
+        return ops.decode_forward(q, k, v, k.shape[1], mode=mode)
+    return ops.mha_forward(q, k, v, causal=False, mode=mode)
+
+
 def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
-               cross_kv=None, attn_fn=None, use_rope=True, mode=None):
+               cross_kv=None, attn_fn=None, use_rope=True, causal=None, mode=None):
     """Returns (out, new_kv) where new_kv is (k, v) of this call's tokens.
 
     kv_cache: optional (k_cache, v_cache) of shape (B, S_max, Hkv, D) -- decode
     path (x is (B,1,d)). The new token's K and V are written into these tensors
     **in place** at ``cache_index`` (a host int), and the same tensors are
-    returned. cross_kv: precomputed (k, v) for cross-attention (no rope, no
-    cache write). ``mode`` is handed to ``kernels.ops``.
+    returned. cross_kv: precomputed (k, v) for cross-attention (no cache write;
+    ``cross_attend``). ``causal`` (default ``cfg.causal``) masks the
+    self-attention; ``attn_fn`` is called with it too. ``mode`` is handed to
+    ``kernels.ops``.
     """
     B, L, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = layers.to_dtype(cfg.compute_dtype)
+    causal = cfg.causal if causal is None else causal
     q = layers.dense(p["wq"], x, dtype=dt).reshape(B, L, H, hd)
     if cross_kv is not None:
         k, v = cross_kv
         if use_rope:
             q = layers.rope(q, positions, cfg.rope_theta)
-        # non-causal with L != S in general, and on no serving path yet: stays
-        # on the plain online softmax
-        o = (attn_fn or flash_ref)(q, k, v, causal=False)
+        o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
         return layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt), None
 
     k = layers.dense(p["wk"], x, dtype=dt).reshape(B, L, Hkv, hd)
@@ -213,9 +233,9 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         return out, (k_cache, v_cache)
 
     if attn_fn is not None:
-        o = attn_fn(q, k, v, causal=cfg.causal)
+        o = attn_fn(q, k, v, causal=causal)
     else:
-        o = ops.mha_forward(q, k, v, causal=cfg.causal, mode=mode)
+        o = ops.mha_forward(q, k, v, causal=causal, mode=mode)
     out = layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
     # (the reference constrains the collected K/V's sharding here; one device
     # has nothing to constrain)

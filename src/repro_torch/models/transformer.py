@@ -1,4 +1,5 @@
-"""LM-family model assembly: the dense, MoE, VLM and hybrid (Zamba2) families.
+"""LM-family model assembly: the dense, MoE, VLM, hybrid (Zamba2) and ssm
+(RWKV6) families.
 
 Blocks are a Python list of per-layer parameter dicts and the stacks are Python
 loops over it. Under grad, ``remat`` names how each block is checkpointed for
@@ -9,8 +10,10 @@ hybrid model is ``hybrid_prologue`` Mamba2 layers (``params["prologue"]``), then
 ``hybrid_groups`` groups of ``hybrid_mamba_per_group`` Mamba2 layers
 (``params["groups"]``, a list of lists), each group followed by the one shared
 attention block (``params["shared_attn"]``, one weight set used after every
-group). The ssm family (rwkv) is not ported yet and raises
-``NotImplementedError`` naming the family.
+group). An ssm model is ``params["ln0"]`` (a LayerNorm on the embeddings) and
+``num_layers`` RWKV6 layers (``rwkv.rwkv_block``), each layer's prefill starting
+from a zero state. A family the port has no model of raises
+``NotImplementedError`` naming it (the encdec family is ``models/encdec.py``).
 
 Public API (used by train/, serve/ and launch/):
     init_lm(cfg, gen)                       -> params
@@ -24,8 +27,10 @@ Public API (used by train/, serve/ and launch/):
 The cache is ``{"k", "v": (L, B, S_max, Hkv, hd), "idx": int}``; a hybrid
 model's is ``{"prologue": [state], "groups": [[state]], "attn_k", "attn_v":
 (hybrid_groups, B, S_max, Hkv, hd), "idx": int}``, a state being a Mamba2 layer's
-fp32 ``{"conv", "ssm"}``. ``idx`` is a host int (reading a device scalar back
-every step would synchronise), and ``decode_lm`` updates the cache **in place**
+fp32 ``{"conv", "ssm"}``; an ssm model's is ``{"layers": [state], "idx": int}``,
+a state being an RWKV6 layer's fp32 ``{"S", "x_att", "x_cmix"}``. ``idx`` is a
+host int (reading a device scalar back every step would synchronise), and
+``decode_lm`` updates the cache **in place**
 (K/V rows written into the tensors, the layers' states replaced in the lists):
 the cache it returns is the one it was given. ``write_slot`` copies a
 one-sequence cache into one slot of a batched one.
@@ -40,19 +45,24 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import tree
-from repro_torch.models import attention, layers, mamba, moe
+from repro_torch.models import attention, layers, mamba, moe, rwkv
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
-# leaves that cast_params keeps fp32: the norm scales (apply_norm multiplies in
-# fp32; "norm" is a Mamba2 layer's and its inner norm's), the MoE router
-# (moe._route computes the routing in fp32 from it) and the Mamba2 leaves that
-# mamba_apply uses in fp32 (the convolution, the decay, the skip and dt's bias)
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+# keys whose subtree cast_params keeps fp32: the norms (apply_norm multiplies in
+# fp32; "norm" is a Mamba2 layer's and its inner norm's; "xattn_norm",
+# "enc_norm" and "dec_norm" the encoder-decoder's; "ln0", "ln1" and "ln2" an
+# RWKV6 model's), the MoE router (moe._route computes the routing in fp32 from
+# it), the Mamba2 leaves that mamba_apply uses in fp32 (the convolution, the
+# decay, the skip and dt's bias) and an RWKV6 layer's whole "block" (time_mix
+# and channel_mix widen every weight to fp32 at use)
 _FP32_KEYS = ("attn_norm", "mlp_norm", "final_norm", "router",
-              "norm", "conv_w", "conv_b", "A_log", "D", "dt_bias")
+              "norm", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+              "xattn_norm", "enc_norm", "dec_norm", "block", "ln0", "ln1", "ln2")
 # leading dims the JAX package stacks each of these subtrees on (its layers are
 # scanned; the port keeps lists): compat unstacks and restacks them, and the
 # optimizer's decay rule counts them as the reference's rank test sees them
-JAX_STACKED_DIMS = {"blocks": 1, "prologue": 1, "groups": 2}
+JAX_STACKED_DIMS = {"blocks": 1, "prologue": 1, "groups": 2,
+                    "enc_blocks": 1, "dec_blocks": 1}
 
 # the counterparts of the reference's jax.checkpoint policies: which outputs of
 # a block's forward are kept for the backward pass ("full" keeps none and runs
@@ -123,6 +133,18 @@ def _mamba_layer_apply(p, x, cfg, state=None):
     return x + h, new_state
 
 
+def _rwkv_layer_init(gen, cfg):
+    dev = gen.device
+    return {"block": rwkv.rwkv_init(gen, cfg),
+            "ln1": layers.norm_init("layernorm", cfg.d_model, dev),
+            "ln2": layers.norm_init("layernorm", cfg.d_model, dev)}
+
+
+def _rwkv_layer_apply(p, x, state, *, cfg):
+    return rwkv.rwkv_block(p["block"], x, cfg, {"ln1": p["ln1"], "ln2": p["ln2"]},
+                           state=state)
+
+
 def _checkpointed(fn, remat):
     """``fn`` under the checkpointing that ``remat`` names; ``fn`` itself
     without grad (serving), where no backward pass will run."""
@@ -162,6 +184,10 @@ def init_lm(cfg, gen: torch.Generator):
                             for _ in range(cfg.hybrid_groups)]
         params["shared_attn"] = _block_init(gen, cfg)  # ONE weight set, reused
         return params
+    if cfg.family == "ssm":
+        params["blocks"] = [_rwkv_layer_init(gen, cfg) for _ in range(cfg.num_layers)]
+        params["ln0"] = layers.norm_init("layernorm", cfg.d_model, gen.device)
+        return params
     params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.num_layers)]
     return params
 
@@ -171,12 +197,13 @@ def cast_params(cfg, params, dtype=None, device=None):
 
     ``layers.dense`` (and the MoE expert products) cast their weights on every
     call; eagerly that would re-cast every weight at every step. Cast once, the
-    per-call cast is the identity and the numbers are the same. The leaves under
-    ``_FP32_KEYS`` stay fp32: the norm scales (``apply_norm`` multiplies in fp32),
-    the MoE router (routing is computed in fp32 from it; rounded, it would
-    choose other experts) and the Mamba2 leaves ``mamba_apply`` computes with in
-    fp32 (rounded, they would give other numbers with no error). With
-    ``device`` every leaf is also moved there.
+    per-call cast is the identity and the numbers are the same. The subtrees
+    under ``_FP32_KEYS`` stay fp32: the norms (``apply_norm`` multiplies in
+    fp32), the MoE router (routing is computed in fp32 from it; rounded, it
+    would choose other experts), the Mamba2 leaves ``mamba_apply`` and every
+    leaf of an RWKV6 layer's ``block`` the RWKV6 mixes compute with in fp32
+    (rounded, they would give other numbers with no error). With ``device``
+    every leaf is also moved there.
     """
     dt = layers.to_dtype(dtype or cfg.compute_dtype)
 
@@ -211,10 +238,21 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device="cpu"
                 "attn_k": torch.zeros(shape, dtype=dt, device=device),
                 "attn_v": torch.zeros(shape, dtype=dt, device=device),
                 "idx": 0}
+    if cfg.family == "ssm":
+        # fp32 states whatever the compute type, as in the reference
+        return {"layers": [rwkv.rwkv_state_init(cfg, batch, device=device)
+                           for _ in range(cfg.num_layers)],
+                "idx": 0}
     shape = (cfg.num_layers, batch, max_seq, hkv, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "idx": 0}
+
+
+# the entries of a cache holding per-layer states (lists of dicts, one tensor a
+# state leaf) and those holding K/V stacked over layers, by family
+_STATE_PARTS = {"hybrid": ("prologue", "groups"), "ssm": ("layers",)}
+_KV_PARTS = {"hybrid": ("attn_k", "attn_v"), "ssm": ()}
 
 
 def write_slot(cfg, cache, slot: int, one):
@@ -222,14 +260,11 @@ def write_slot(cfg, cache, slot: int, one):
     of the batched ``cache``, in place (the slot is the axis after the layer
     dims, where the reference's engine finds the slot count meeting 1). ``idx``
     is left to the caller."""
-    if cfg.family == "hybrid":
-        for big, small in zip(tree.leaves([cache["prologue"], cache["groups"]]),
-                              tree.leaves([one["prologue"], one["groups"]])):
-            big[slot] = small[0]
-        keys = ("attn_k", "attn_v")
-    else:
-        keys = ("k", "v")
-    for key in keys:
+    parts = _STATE_PARTS.get(cfg.family, ())
+    for big, small in zip(tree.leaves([cache[k] for k in parts]),
+                          tree.leaves([one[k] for k in parts])):
+        big[slot] = small[0]
+    for key in _KV_PARTS.get(cfg.family, ("k", "v")):
         cache[key][:, slot] = one[key][:, 0]
 
 
@@ -262,6 +297,15 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
         x, kvs = _hybrid_stack(cfg, params, x, positions, attn_fn=attn_fn, remat=remat,
                                mode=mode)
         kvs = kvs if collect_kv else None
+    elif cfg.family == "ssm":
+        x = layers.apply_norm("layernorm", params["ln0"], x)
+        st0 = rwkv.rwkv_state_init(cfg, x.shape[0], device=x.device)
+        layer = _checkpointed(partial(_rwkv_layer_apply, cfg=cfg), remat)
+        kvs = [] if collect_kv else None
+        for blk in params["blocks"]:
+            x, st = layer(blk, x, st0)
+            if collect_kv:
+                kvs.append(st)
     else:
         block = _checkpointed(partial(_block_apply, cfg=cfg, positions=positions,
                                       attn_fn=attn_fn, mode=mode, moe_impl=moe_impl),
@@ -323,6 +367,10 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     max_seq = max_seq or S
     cache = init_cache(cfg, B, max_seq, dtype=cfg.compute_dtype,
                        device=hidden.device)
+    cache["idx"] = S
+    if cfg.family == "ssm":
+        cache["layers"] = kvs
+        return hidden, cache
     if cfg.family == "hybrid":
         pro_states, groups = kvs
         cache["prologue"] = pro_states
@@ -332,7 +380,6 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     for i, (k, v) in enumerate(kvs):
         cache[ks][i, :, :S] = k.to(cache[ks].dtype)
         cache[vs][i, :, :S] = v.to(cache[vs].dtype)
-    cache["idx"] = S
     return hidden, cache
 
 
@@ -358,6 +405,11 @@ def decode_lm(cfg, params, cache, tokens, *, moe_impl: str = "einsum", mode=None
             x, _, _ = _block_apply(params["shared_attn"], x, cfg, positions=positions,
                                    kv=(cache["attn_k"][g], cache["attn_v"][g]),
                                    cache_index=idx, mode=mode)
+    elif cfg.family == "ssm":
+        x = layers.apply_norm("layernorm", params["ln0"], x)
+        states = cache["layers"]
+        for i, blk in enumerate(params["blocks"]):
+            x, states[i] = _rwkv_layer_apply(blk, x, states[i], cfg=cfg)
     else:
         for i, blk in enumerate(params["blocks"]):
             x, _, _ = _block_apply(blk, x, cfg, positions=positions,

@@ -4,6 +4,12 @@ steps, with straggler deadlines.
 Slots hold independent requests; finished slots are refilled from the queue
 without stopping the decode loop. The engine runs on the card unless the caller
 passes ``device="cpu"``.
+
+Requests are token prompts alone, as in the reference, whose engine cannot
+serve an encoder-decoder model (its prefill reads ``batch["frames"]``): here
+``ServeEngine`` refuses the encdec family with ``NotImplementedError`` at
+construction. Such a model is served through ``api.prefill`` / ``api.decode``
+with its frames.
 """
 from __future__ import annotations
 
@@ -62,6 +68,12 @@ class ServeEngine:
     def __init__(self, cfg, params, *, slots: int = 4, max_seq: int = 256,
                  straggler: Optional[StragglerPolicy] = None, device="cuda",
                  mode=None):
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"ServeEngine serves token prompts and cannot serve the encdec family "
+                f"({cfg.name}): its prefill needs the encoder's frames, which a Request "
+                "does not carry (as in the reference engine); call api.prefill with "
+                "{'tokens', 'frames'} and api.decode instead")
         self.cfg = cfg
         self.device = api.resolve_device(device)
         self.mode = mode

@@ -78,9 +78,12 @@ def init(params) -> OptState:
 
 
 def global_norm(grads):
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    norms = torch._foreach_norm(tree.leaves(grads), 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares of every leaf, summed in fp64 and returned in
+    fp32: torch's fp32 norm on the CPU drifts by ~1e-4 on a leaf of millions of
+    elements (a whisper model's ``pos_dec``), where the reference's fp32 sum
+    does not."""
+    norms = torch._foreach_norm(tree.leaves(grads), 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 def _decay_mask(path) -> bool:

@@ -10,8 +10,10 @@ compute type inside the loss. The step updates the state's tensors in place
 tensors: reading one waits for the card.
 
 The reference's ``grad_specs`` (the gradient accumulator's sharding) has no
-counterpart: one card has nothing to shard. The dense, moe, vlm and hybrid
-families are ported; ``init_state`` and ``make_loss_fn`` raise for the others.
+counterpart: one card has nothing to shard. Every family of the registry is
+ported (an encdec batch carries its ``frames``); ``init_state`` and
+``make_loss_fn`` raise ``NotImplementedError`` for a family the port has no
+model of.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from repro_torch import tree
-from repro_torch.models import api, layers, transformer
+from repro_torch.models import api, layers
 from repro_torch.models.attention import knob_attention
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy
@@ -81,7 +83,7 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
     ``cast_params`` casts every floating leaf, the MoE router too, as the
     reference's loss does (``transformer.cast_params``, used for serving,
     keeps the router fp32)."""
-    transformer._require_ported(cfg)
+    api.require_ported(cfg)
 
     def loss_fn(params, mb):
         attn_fn = knob_attention(run.attn_chunk, run.attn_pv_bf16,

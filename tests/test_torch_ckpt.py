@@ -262,7 +262,7 @@ def test_train_launcher_saves_on_sigterm(tmp_path):
     assert len(steps) == 1 and 2 <= steps[0] < 100000
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b", "rwkv6-7b", "whisper-large-v3"])
 def test_train_launcher_trains_moe_and_vlm(arch, tmp_path, capsys):
     handler = signal.getsignal(signal.SIGTERM)       # the launcher installs its own
     try:

@@ -14,7 +14,7 @@ import torch
 
 from repro.configs import registry as jregistry
 from repro.models import api as japi
-from repro_torch import compat
+from repro_torch import compat, tree
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import api as tapi
 
@@ -39,6 +39,24 @@ def test_converter_round_trip(arch):
     # the converter copies: the port's tensors do not alias the numpy arrays
     pt["emb"]["table"][0, 0] += 1.0
     assert np.asarray(tree["emb"]["table"])[0, 0] != float(pt["emb"]["table"][0, 0])
+
+
+@pytest.mark.parametrize("arch", sorted(tregistry.ARCHS))
+def test_converter_round_trip_of_every_family(arch):
+    """The port's own seeded init of every registered config, dense, moe, vlm,
+    hybrid, ssm and encdec: in the JAX layout it has the JAX init's structure,
+    shapes and types (each stacked subtree restacked on its dims), and it comes
+    back unchanged."""
+    cj, ct = jregistry.get(arch).reduced(), tregistry.get(arch).reduced()
+    params = tapi.init(ct, 0, device="cpu")
+    back = compat.params_to_jax(ct, params)
+    shapes = jax.eval_shape(lambda: japi.init(cj, jax.random.PRNGKey(0)))
+    assert jax.tree.structure(back) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(back), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == s.dtype == np.float32
+    again = compat.params_from_jax(ct, back, device="cpu")
+    for a, b in zip(tree.leaves(again), tree.leaves(params)):
+        assert torch.equal(a, b)
 
 
 def test_jax_initialised_weights_cross_over():
@@ -89,6 +107,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         need = {"repro_torch.compat", "repro_torch.configs.registry", "repro_torch.models.layers",
                 "repro_torch.models.attention", "repro_torch.models.transformer",
                 "repro_torch.models.api", "repro_torch.models.moe", "repro_torch.models.mamba",
+                "repro_torch.models.rwkv", "repro_torch.models.encdec",
                 "repro_torch.kernels.ref",
                 "repro_torch.kernels.ops",
                 "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",

@@ -50,6 +50,7 @@ def _requests(mod, vocab, n, prompt_len, max_new, seed):
     ("dbrx-132b", 4, 2, 6, 3, 32, 3),       # moe: decode drops choices at capacity 1
     ("grok-1-314b", 3, 3, 5, 4, 16, 4),
     ("pixtral-12b", 4, 2, 6, 3, 32, 5),     # vlm served on tokens alone, as by the reference
+    ("rwkv6-7b", 5, 2, 6, 3, 32, 6),        # ssm: fp32 states spliced into refilled slots
 ])
 def test_engine_tokens_identical_to_jax(arch, n, slots, prompt_len, max_new, max_seq, seed,
                                         reference_mlp_follows_compute_dtype):
@@ -177,7 +178,7 @@ def test_launcher_flags(capsys):
     assert parse([]).device == "cuda" and parse([]).arch == "qwen2.5-3b"
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "pixtral-12b", "zamba2-7b", "rwkv6-7b"])
 def test_launcher_serves_moe_and_vlm(arch, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--device", "cpu", "--arch", arch, "--requests", "2", "--slots", "2",
@@ -186,7 +187,7 @@ def test_launcher_serves_moe_and_vlm(arch, capsys):
     assert f"served 2 requests / 4 tokens of {arch}-reduced on cpu in" in out
     # the prediction's group size is the config's: 48 / 8 = 6 for dbrx at full width
     assert tregistry.get(arch).q_group_size == {"dbrx-132b": 6, "pixtral-12b": 4,
-                                                "zamba2-7b": 1}[arch]
+                                                "zamba2-7b": 1, "rwkv6-7b": 1}[arch]
     assert serve.decode_prediction(tregistry.get(arch).reduced(), 2, 16) + "\n" in out
 
 

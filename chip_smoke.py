@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
   build    first use of the kernels' build (one nvcc per source, in parallel)
   kernels  each hand-written kernel against its plain PyTorch version on the
            card over a grid of shapes (fp32 at 2e-5 through flash_fwd.cu and
-           flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu and
-           flash_decode_sm90.cu), and timed at the serving shapes and at a
+           flash_decode.cu, bf16 at 2e-2 through flash_fwd_sm90.cu, also at
+           every ring depth it is built with, and flash_decode_sm90.cu), and
+           timed at the serving shapes and at a
            long context (the bf16 kernels also at zamba2-7b's shapes, head_dim
            112 and G = 1, and the bf16 forward at olmo-1b's training shape;
            both types at whisper-large-v3's: the encoder's non-causal
@@ -21,10 +22,27 @@ Phases, each printing one JSON line:
            Kernel and library times are device times (kernel durations from
            torch.profiler); wrapper_ms is the host-clocked time of a call
            through the wrapper; a decode call must run one device kernel
-  sim      the simulator's predictions (simulate_fa3 and analytical.analyze on
-           the H800 preset, 1.83 GHz) for the bf16 kernels' four timed shapes,
-           one line each beside the kernels phase's device time (not timed
-           again) and the card's SM clock; about a minute of host time
+  sim      the simulator's predictions for the bf16 kernels' timed shapes, one
+           line each beside the kernels phase's device time (not timed again)
+           and the card's SM clock: simulate_fa3 and analytical.analyze on the
+           H800 preset (1.83 GHz) at the four shapes of the paper's own kernel
+           models, and SimFA-H100 (core/sm90: fwd_trace / decode_trace on the
+           engine, analyze_sm90) on the H100 preset at the clock read at
+           timing, at each bf16 shape of PERF.md's kernel table: the forward
+           at serving, 2048, train, zamba2, whisper's encoder and
+           cross-attention, the decode at serving, 32k, zamba2 and whisper.
+           The simulations run in worker processes on the host's cores while
+           the plan phase times the card
+  plan     (with sim) each of those shapes through the kernels' tiling
+           parameters: every ring depth the bf16 forward is built with, and
+           the bf16 decode at the split rule's n_split and at each n_split of
+           autotune_decode's short-list; every candidate's output is held
+           against the plain version at 2e-2 (a mismatch fails the run) and
+           timed by device time. Each row gives the plan's pick and its
+           predicted us, each candidate's ms, the measured best and whether
+           the pick is it or within 5 %; then one line of readings: the H100
+           preset's fields beside the card's, the mean absolute percentage
+           error of sim and analytical against measured over the sim rows
   serve    qwen2.5-3b at full width and depth, bf16, random seeded weights:
            8 requests of 512 prompt tokens through ServeEngine (4 slots,
            16 new tokens each); asserts the kernels' launch counts
@@ -96,9 +114,11 @@ Needs a CUDA device and nvcc; imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -115,6 +135,11 @@ from repro_torch.configs.llama3 import AttnWorkload           # noqa: E402
 from repro_torch.core import analytical                       # noqa: E402
 from repro_torch.core.machine import H800                     # noqa: E402
 from repro_torch.core.simfa import simulate_fa3               # noqa: E402
+from repro_torch.core.sm90 import machine as sm90             # noqa: E402
+from repro_torch.core.sm90.analytical import analyze_sm90     # noqa: E402
+from repro_torch.core.sm90.autotune import (autotune_decode, autotune_flash,  # noqa: E402
+                                            decode_candidates, flash_candidates)
+from repro_torch.core.sm90.tracegen import simulate_sm90      # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
@@ -152,6 +177,12 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
     (1, 48, 8, 512, 512, 128),     # dbrx-132b's prefill, G = 6
     (1, 32, 32, 512, 512, 112),    # zamba2-7b's shared block's prefill, G = 1, D 112
+]
+FWD_STAGES = [  # bf16, both masks, at every ring depth the forward is built with
+    (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
+    (1, 16, 2, 1024, 1024, 64),    # more K/V tiles than the deepest ring
+    (1, 2, 2, 192, 192, 112),      # head_dim 112 in the 128-column template
+    (1, 8, 2, 640, 640, 128),
 ]
 FWD_ODD = [  # fp32 only, causal: the pairing of 32-row tiles in flash_fwd.cu
     (1, 4, 1, 80, 80, 112),        # 3 row tiles: the middle one alone, ragged rows
@@ -207,6 +238,8 @@ SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
 WHISPER_DEC = dict(B=4, H=20, Hkv=20, S_max=1500, D=64, clen=1500, layers=32)  # cross
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
+PLAN_SHORTLIST = 3      # autotune_decode's candidates timed beside the split rule
+PICK_WITHIN = 0.05      # a pick within 5 % of the measured best counts as agreeing
 
 
 def emit(obj):
@@ -302,6 +335,24 @@ def device_profile(fn, iters=20, warmup=3, attempts=3, calls=1):
     raise AssertionError(f"the profiler recorded no whole window of {iters} x {calls} "
                          f"calls in {attempts} attempts; the last held {launched} kernels: "
                          f"{[(n, name[:60]) for _, n, name in rows]}")
+
+
+def kernel_ms(fn, calls=1, iters=20, warmup=3, attempts=3):
+    """Device time of one kernel of ``fn``, whose ``calls`` wrapper calls each
+    launch one kernel: the summed durations of the profiled kernels over their
+    count. A window may lose a kernel record (the <128, 3> forward lost one in
+    every window of a run, with the simulations' worker processes busy); the
+    mean over the records it holds stands while it holds 90 % of them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    want = iters * calls
+    for _ in range(attempts):
+        busy, launched, rows = _profile_window(fn, iters)
+        if want * 0.9 <= launched <= want:
+            return busy / launched
+    raise AssertionError(f"the profiler recorded {launched} of {want} kernels in each of "
+                         f"{attempts} windows: {[(n, name[:60]) for _, n, name in rows]}")
 
 
 def device_ms(fn, iters=20, warmup=3, attempts=3):
@@ -539,6 +590,19 @@ def phase_kernels():
             err = (got.float() - fa.flash_attention_plain(q, k, v, causal=causal,
                                                           pv_bf16=True).float()).abs()
             worst_pv_bf16 = max(worst_pv_bf16, float(err.max()))
+    for (B, H, Hkv, L, S, D) in FWD_STAGES:
+        q = randn(rng, (B, H, L, D), torch.bfloat16)
+        k = randn(rng, (B, Hkv, S, D), torch.bfloat16)
+        v = randn(rng, (B, Hkv, S, D), torch.bfloat16)
+        for causal in (True, False):
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            for stages in fa.STAGES_SM90[fa.head_dim_template(D)]:
+                got = fa.flash_attention(q, k, v, causal=causal, stages=stages)
+                torch.cuda.synchronize()
+                what = f"flash_fwd {(B, H, Hkv, L, S, D)} causal={causal} stages={stages}"
+                worst["flash_fwd"] = max(worst["flash_fwd"],
+                                         compare(got, want, torch.bfloat16, what))
+                cases["flash_fwd"] += 1
     check_tma_refusal(rng)
     for (B, H, Hkv, S, D, clen), dtype in decode_grid_cases():
         name = "flash_decode" if dtype == torch.bfloat16 else "flash_decode_f32"
@@ -693,35 +757,295 @@ def sim_shapes():
     ]
 
 
-def phase_sim(kernels):
+def bf16_shapes():
+    """(kernel, key of its timing in the kernels line, workload) of each bf16
+    shape of PERF.md's kernel table. A decode workload's S is the cache length
+    the kernel was timed at; a forward's causal flag is the timed call's."""
+    s, d, dl, z, w = SERVE_FWD, SERVE_DEC, LONG_DEC, ZAMBA_DEC, WHISPER_DEC
+
+    def fwd(name, B, H, Hkv, L, D, S=None, causal=True):
+        return AttnWorkload(name, B=B, L=L, S=S or L, H_kv=Hkv, G=H // Hkv, D=D,
+                            causal=causal)
+
+    def dec(name, x):
+        return AttnWorkload(name, B=x["B"], L=1, S=x["clen"], H_kv=x["Hkv"],
+                            G=x["H"] // x["Hkv"], D=x["D"])
+
+    eB, eH, eHkv, eL, eS, eD = WHISPER_ENC
+    cB, cH, cHkv, cL, cS, cD = WHISPER_CROSS
+    return [
+        ("flash_fwd", None, fwd("prefill", s["B"], s["H"], s["Hkv"], s["L"], s["D"])),
+        ("flash_fwd", "long", fwd("prefill_2048", *LONG_FWD)),
+        ("flash_fwd", "train", fwd("train", *TRAIN_GRAD_CASES[0][0])),
+        ("flash_fwd", "zamba2", fwd("zamba2_prefill", *ZAMBA_FWD)),
+        ("flash_fwd", "whisper_enc", fwd("whisper_enc", eB, eH, eHkv, eL, eD, S=eS,
+                                         causal=False)),
+        ("flash_fwd", "whisper_cross", fwd("whisper_cross", cB, cH, cHkv, cL, cD, S=cS,
+                                           causal=False)),
+        ("flash_decode", None, dec("decode", d)),
+        ("flash_decode", "long", dec("decode_32k", dl)),
+        ("flash_decode", "zamba2", dec("zamba2_decode", z)),
+        ("flash_decode", "whisper_cross", dec("whisper_cross_decode", w)),
+    ]
+
+
+# a decode shape's cache as the kernels phase timed it: its layers' slices of one cache
+PLAN_DECODE = {"decode": SERVE_DEC, "zamba2_decode": ZAMBA_DEC,
+               "whisper_cross_decode": WHISPER_DEC,
+               "decode_32k": dict(LONG_DEC, S_max=LONG_DEC["clen"], layers=1)}
+SIM_MAX_CTAS = {"decode_32k": 64}   # sampled (one wave: the sample reads as the full launch)
+
+
+def clock_ghz(smi_clock):
+    """The SM clock of an ``sm_clock()`` reading, in GHz."""
+    return float(smi_clock.split()[0]) / 1000
+
+
+def shape_text(w):
+    return (f"B{w.B} H{w.H_kv * w.G} Hkv{w.H_kv} L{w.L} S{w.S} D{w.D}"
+            + (" causal" if w.causal else ""))
+
+
+def simulate_task(kind, w, machine, setting, max_ctas):
+    """One simulation in a worker process: what a sim row prints of it."""
+    t0 = time.perf_counter()
+    if kind == "h800":
+        res = simulate_fa3(w, H800, kernel=setting)
+        out = dict(cycles=res.cycles, us=res.cycles / (H800.freq_ghz * 1e3),
+                   deadlocked=res.deadlocked, aborted=res.aborted, fidelity=res.fidelity,
+                   ctas=res.n_ctas_total)
+    else:
+        res = simulate_sm90(w, machine, kernel=kind, max_ctas=max_ctas, **setting)
+        out = dict(cycles=res.cycles, us=res.us, deadlocked=res.deadlocked, aborted=False,
+                   ctas=res.ctas, ctas_simulated=res.ctas_simulated,
+                   sms_simulated=res.sms_simulated)
+    out["host_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_sim(kernels, plan=False):
     """The simulator's prediction of each bf16 kernel's timed shape, beside the
-    device time the kernels phase measured there. Fails when the simulator
-    deadlocks, aborts or counts no cycle; the ratio is a reading, not a check."""
+    device time the kernels phase measured there: the four H800 rows of the
+    paper's kernel models, then SimFA-H100's rows of the port's own kernels at
+    their default settings. The simulations run in worker processes. With
+    ``plan`` the plan phase times the card meanwhile, the workers simulate each
+    of its candidates too, and its rows are printed after the sim rows with
+    each candidate's simulated us. Fails when a simulation deadlocks, aborts
+    or counts no cycle; the ratios are readings, not checks. Returns the
+    SimFA-H100 rows and the plan rows."""
     if not kernels:
         raise SystemExit("the sim phase reads the kernels phase's times: run both")
     rows = {k["name"]: k for k in kernels}
-    for name, which, program, w in sim_shapes():
-        timing = rows[name] if which == "serving" else rows[name]["long"]
-        t0 = time.perf_counter()
-        res = simulate_fa3(w, H800, kernel=program)
-        host_s = time.perf_counter() - t0
-        if res.deadlocked or res.aborted or not res.cycles > 0:
-            raise AssertionError(f"sim {w.name}: deadlocked={res.deadlocked} "
-                                 f"aborted={res.aborted} cycles={res.cycles}")
-        ana = analytical.analyze(w, H800, kernel=program)
-        sim_us = res.cycles / (H800.freq_ghz * 1e3)
-        measured_us = timing["ms"] * 1e3
-        emit({"phase": "sim", "kernel": name, "program": program, "workload": w.name,
-              "shape": f"B{w.B} H{w.H_kv * w.G} Hkv{w.H_kv} L{w.L} S{w.S} D{w.D}"
-                       + (" causal" if w.causal else ""),
-              "preset": H800.name, "freq_ghz": H800.freq_ghz, "sim_cycles": res.cycles,
-              "sim_us": sim_us, "analytical_us": ana.latency * 1e6,
-              "analytical_bound": ana.bottleneck, "measured_us": measured_us,
-              "sim_over_measured": sim_us / measured_us,
-              "fidelity": res.fidelity, "ctas": res.n_ctas_total,
-              "host_seconds": host_s,
-              "sm_clock_at_timing": timing["sm_clock"],
-              "sm_clock_now": sm_clock()})
+
+    def timing(name, key):
+        return rows[name] if key is None else rows[name][key]
+
+    h800 = sim_shapes()
+    h100 = []
+    for kernel, key, w in bf16_shapes():
+        clock = timing(kernel, key)["sm_clock"]
+        m = sm90.h100_sxm(clock_ghz(clock))
+        h100.append((kernel, key, w, clock, m, analyze_sm90(w, m, kernel=kernel)))
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        def sim(kernel, w, m, setting):
+            return pool.submit(simulate_task, kernel, w, m, setting, SIM_MAX_CTAS.get(w.name))
+
+        h800_jobs = [pool.submit(simulate_task, "h800", w, None, program, None)
+                     for _, _, program, w in h800]
+        h100_jobs = [sim(kernel, w, m, dict(stages=rep.stages, n_split=rep.n_split))
+                     for kernel, _, w, _, m, rep in h100]
+        cand_jobs = {}
+        if plan:
+            for kernel, _, w, _, m, _ in h100:
+                knob, _, settings = plan_settings(kernel, w, m)
+                for value in settings:
+                    cand_jobs[w.name, value] = sim(kernel, w, m, {knob: value})
+        plan_rows = phase_plan([m for *_, m, _ in h100]) if plan else []
+        for (name, which, program, w), job in zip(h800, h800_jobs):
+            res = job.result()
+            if res["deadlocked"] or res["aborted"] or not res["cycles"] > 0:
+                raise AssertionError(f"sim {w.name}: {res}")
+            t = timing(name, None if which == "serving" else "long")
+            ana = analytical.analyze(w, H800, kernel=program)
+            measured_us = t["ms"] * 1e3
+            emit({"phase": "sim", "kernel": name, "program": program, "workload": w.name,
+                  "shape": shape_text(w), "preset": H800.name, "freq_ghz": H800.freq_ghz,
+                  "sim_cycles": res["cycles"], "sim_us": res["us"],
+                  "analytical_us": ana.latency * 1e6, "analytical_bound": ana.bottleneck,
+                  "measured_us": measured_us, "sim_over_measured": res["us"] / measured_us,
+                  "fidelity": res["fidelity"], "ctas": res["ctas"],
+                  "host_seconds": res["host_seconds"], "sm_clock_at_timing": t["sm_clock"],
+                  "sm_clock_now": sm_clock()})
+        sim_rows = []
+        for (kernel, key, w, clock, m, rep), job in zip(h100, h100_jobs):
+            res = sim_result(job, f"SimFA-H100 {kernel} {w.name}")
+            measured_us = timing(kernel, key)["ms"] * 1e3
+            row = {"phase": "sim", "kernel": kernel,
+                   "program": "fwd_trace" if kernel == "flash_fwd" else "decode_trace",
+                   "workload": w.name, "shape": shape_text(w), "preset": "H100-SXM",
+                   "freq_ghz": m.freq_ghz, "setting": (
+                       {"stages": rep.stages} if kernel == "flash_fwd"
+                       else {"n_split": rep.n_split}),
+                   "sim_cycles": res["cycles"], "sim_us": res["us"],
+                   "analytical_us": rep.latency * 1e6, "analytical_bound": rep.bottleneck,
+                   "measured_us": measured_us, "sim_over_measured": res["us"] / measured_us,
+                   "analytical_over_measured": rep.latency * 1e6 / measured_us,
+                   "ctas": res["ctas"], "ctas_simulated": res["ctas_simulated"],
+                   "sms_simulated": res["sms_simulated"], "host_seconds": res["host_seconds"],
+                   "sm_clock_at_timing": clock}
+            emit(row)
+            sim_rows.append(row)
+        for row in plan_rows:
+            knob = row["knob"]
+            for c in row["candidates"]:
+                c["sim_us"] = sim_result(cand_jobs[row["workload"], c[knob]],
+                                         f"plan {row['workload']} {knob} {c[knob]}")["us"]
+            row["sim_pick"] = min(row["candidates"], key=lambda c: c["sim_us"])[knob]
+            emit(row)
+    return sim_rows, plan_rows
+
+
+def sim_result(job, what):
+    res = job.result()
+    if res["deadlocked"] or not res["cycles"] > 0:
+        raise AssertionError(f"{what}: {res}")
+    return res
+
+
+def machine_check():
+    """The H100 preset's fields beside the card's own readings (a reading)."""
+    props = torch.cuda.get_device_properties(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm,"
+                          "clocks.max.mem", "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    card = {k: getattr(props, k, None) for k in (
+        "multi_processor_count", "L2_cache_size", "shared_memory_per_block_optin",
+        "shared_memory_per_multiprocessor", "regs_per_multiprocessor",
+        "max_threads_per_multi_processor", "memory_clock_rate", "memory_bus_width",
+        "total_memory")}
+    bw = None
+    if card["memory_clock_rate"] and card["memory_bus_width"]:
+        # kHz, double data rate, bits -> bytes a second
+        bw = 2 * card["memory_clock_rate"] * 1e3 * card["memory_bus_width"] / 8
+    m = sm90.H100_SXM
+    preset = {"num_sms": m.num_sms, "l2_bytes": m.l2_bytes, "dram_bw_gbps": m.dram_bw_gbps,
+              "peak_tflops_fp16": m.peak_tflops_fp16, "smem_per_block": sm90.SMEM_PER_BLOCK,
+              "smem_per_sm": sm90.SMEM_PER_SM, "regs_per_sm": sm90.REGS_PER_SM,
+              "threads_per_sm": sm90.THREADS_PER_SM}
+    pairs = {"num_sms": card["multi_processor_count"], "l2_bytes": card["L2_cache_size"],
+             "smem_per_block": card["shared_memory_per_block_optin"],
+             "smem_per_sm": card["shared_memory_per_multiprocessor"],
+             "regs_per_sm": card["regs_per_multiprocessor"],
+             "threads_per_sm": card["max_threads_per_multi_processor"],
+             "dram_bw_gbps": bw and bw / 1e9}
+    return {"preset": preset, "card": card, "nvidia_smi": smi,
+            "matches": {k: (v == preset[k] if k != "dram_bw_gbps" else
+                            abs(v - preset[k]) / preset[k] < 0.01)
+                        for k, v in pairs.items() if v is not None}}
+
+
+def plan_settings(kernel, w, m):
+    """(knob, the plan's pick, the settings the plan phase times) at ``w``: every
+    ring depth the bf16 forward is built with, or the decode's split rule and
+    autotune_decode's short-list."""
+    if kernel == "flash_fwd":
+        pick = autotune_flash(w, m, causal=w.causal).stages
+        return "stages", pick, sorted(c.stages for c in flash_candidates(w, m, causal=w.causal))
+    pick = autotune_decode(w, m).n_split
+    short = {c.n_split for c in decode_candidates(w, m)[:PLAN_SHORTLIST]}
+    return "n_split", pick, sorted(short | {fd.num_splits_sm90(w.S, w.B * w.H_kv)})
+
+
+def plan_forward(rng, w, m):
+    """The bf16 forward at each of ``plan_settings``, each held to the plain
+    version and timed."""
+    q = randn(rng, (w.B, w.L, w.H_kv * w.G, w.D), torch.bfloat16)
+    k = randn(rng, (w.B, w.S, w.H_kv, w.D), torch.bfloat16)
+    v = randn(rng, (w.B, w.S, w.H_kv, w.D), torch.bfloat16)
+    want = ops.mha_forward(q, k, v, causal=w.causal, mode="reference")
+    _, pick, settings = plan_settings("flash_fwd", w, m)
+    timed = []
+    for stages in settings:
+        def call(st=stages):
+            return ops.mha_forward(q, k, v, causal=w.causal, stages=st)
+        got = call()
+        torch.cuda.synchronize()
+        err = compare(got, want, torch.bfloat16, f"plan {w.name} stages {stages}")
+        rep = analyze_sm90(w, m, kernel="flash_fwd", stages=stages)
+        timed.append(dict(stages=stages, predicted_us=rep.latency * 1e6, ms=kernel_ms(call),
+                          max_abs_err=err))
+    return plan_row(w, "stages", pick, sm90.FWD.default_stages(w.D), timed)
+
+
+def plan_decode(rng, w, m):
+    """The bf16 decode at each of ``plan_settings``, over the cache the kernels
+    phase timed (its layers' slices, cold in L2), each held to the plain
+    version and timed."""
+    s = PLAN_DECODE[w.name]
+    ck = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), torch.bfloat16)
+    cv = randn(rng, (s["layers"], s["B"], s["S_max"], s["Hkv"], s["D"]), torch.bfloat16)
+    qd = randn(rng, (s["B"], 1, s["H"], s["D"]), torch.bfloat16)
+    clen, n = s["clen"], s["layers"]
+    want = ops.decode_forward(qd, ck[0], cv[0], clen, mode="reference")
+    _, pick, settings = plan_settings("flash_decode", w, m)
+    timed = []
+    for split in settings:
+        got = ops.decode_forward(qd, ck[0], cv[0], clen, n_split=split)
+        torch.cuda.synchronize()
+        err = compare(got, want, torch.bfloat16, f"plan {w.name} n_split {split}")
+
+        def sweep(split=split):
+            for i in range(n):
+                ops.decode_forward(qd, ck[i], cv[i], clen, n_split=split)
+        rep = analyze_sm90(w, m, kernel="flash_decode", n_split=split)
+        timed.append(dict(n_split=split, predicted_us=rep.latency * 1e6,
+                          ms=kernel_ms(sweep, calls=n, iters=5, warmup=1), max_abs_err=err))
+    return plan_row(w, "n_split", pick, fd.num_splits_sm90(clen, s["B"] * s["Hkv"]), timed)
+
+
+def plan_row(w, knob, pick, default, timed):
+    ms = {t[knob]: t["ms"] for t in timed}
+    best = min(ms, key=ms.get)
+    return {"phase": "plan", "kernel": "flash_fwd" if knob == "stages" else "flash_decode",
+            "workload": w.name, "shape": shape_text(w), "knob": knob, "pick": pick,
+            "pick_predicted_us": next(t["predicted_us"] for t in timed if t[knob] == pick),
+            "pick_ms": ms[pick], "default": default, "default_ms": ms[default],
+            "candidates": timed, "measured_best": best, "best_ms": ms[best],
+            "pick_is_best": pick == best,
+            "pick_within_5pct": ms[pick] <= (1 + PICK_WITHIN) * ms[best],
+            "sm_clock": sm_clock()}
+
+
+def phase_plan(machines=None):
+    """Each bf16 shape through its kernel's tiling parameter (see the module's
+    docstring), on the H100 preset of ``machines`` (one a shape; by default at
+    the SM clock read now). Returns the rows; the caller prints them."""
+    rng = np.random.default_rng(22)
+    shapes = bf16_shapes()
+    machines = machines or [sm90.h100_sxm(clock_ghz(sm_clock()))] * len(shapes)
+    return [(plan_forward if kernel == "flash_fwd" else plan_decode)(rng, w, m)
+            for (kernel, _, w), m in zip(shapes, machines)]
+
+
+def plan_readings(sim_rows, plan_rows, seconds):
+    """One line of readings (no check): the preset against the card, the mean
+    absolute percentage error of SimFA-H100's sim and analytical predictions
+    against the measured device time over the sim rows, and how often the
+    plan's pick was the measured best."""
+    def mape(pairs):
+        pairs = list(pairs)
+        return sum(abs(p - t) / t for p, t in pairs) / len(pairs) if pairs else None
+    emit({"phase": "plan", "reading": True, "machine": machine_check(),
+          "rows": len(sim_rows),
+          "sim_mape": mape((r["sim_us"], r["measured_us"]) for r in sim_rows),
+          "analytical_mape": mape((r["analytical_us"], r["measured_us"]) for r in sim_rows),
+          "plan_candidates_analytical_mape": mape(
+              (c["predicted_us"], c["ms"] * 1e3) for r in plan_rows for c in r["candidates"]),
+          "picks_best": sum(r["pick_is_best"] for r in plan_rows),
+          "picks_within_5pct": sum(r["pick_within_5pct"] for r in plan_rows),
+          "plan_rows": len(plan_rows), "sim_and_plan_seconds": seconds})
 
 
 def reset_counts():
@@ -1701,8 +2025,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,sim,serve,path,path_f32,moe,hybrid,encdec,"
-                            "ssm,train")
+                    default="device,build,kernels,sim,plan,serve,path,path_f32,moe,hybrid,"
+                            "encdec,ssm,train")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1711,8 +2035,16 @@ def main(argv=None):
     if "build" in phases:
         phase_build(args.ptxas)
     kernels = phase_kernels() if "kernels" in phases else []
+    sim_rows, plan_rows = [], []
+    t_sim = time.time()
     if "sim" in phases:
-        phase_sim(kernels)
+        sim_rows, plan_rows = phase_sim(kernels, plan="plan" in phases)
+    elif "plan" in phases:
+        plan_rows = phase_plan()
+        for row in plan_rows:
+            emit(row)
+    if "plan" in phases:
+        plan_readings(sim_rows, plan_rows, time.time() - t_sim)
     if "serve" in phases:
         phase_serve(kernels)
     if "path" in phases:
@@ -1732,8 +2064,8 @@ def main(argv=None):
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
-    complete = all(p in phases for p in ("build", "kernels", "sim", "serve", "path", "path_f32",
-                                         "moe", "hybrid", "encdec", "ssm", "train"))
+    complete = all(p in phases for p in ("build", "kernels", "sim", "plan", "serve", "path",
+                                         "path_f32", "moe", "hybrid", "encdec", "ssm", "train"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -72,6 +72,7 @@ struct Layout {
   static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
   static constexpr int ALLOC = BAR_OFF + (1 + 4 * STAGES) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "past the dynamic shared memory a block may have");
 };
 
 // S (64 x 128) = Q (64 x DP, shared) K^T (K: 128 x DP, shared), both K-major;
@@ -407,7 +408,10 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // bf16 only. Strides are in elements: q (b, h, l), k (b, h, s), v (b, h, s),
 // o (b, h, l); the head dim is contiguous. Every pointer must be 16-byte
 // aligned and every stride a multiple of 8 elements (16 bytes), as TMA needs.
-// Returns cudaGetLastError() of the launch (0 on success), -1 on a bad argument.
+// `stages` is the depth of the K/V ring: 0 takes the default (2 above D 64,
+// 4 at D <= 64); the built variants are 2 and 3 above D 64, 2, 3 and 4 at
+// D <= 64 (kernels/flash_attention.py: STAGES_SM90). Returns
+// cudaGetLastError() of the launch (0 on success), -1 on a bad argument.
 extern "C" int repro_flash_fwd_sm90(
     const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int L, int S, int D,
@@ -415,7 +419,7 @@ extern "C" int repro_flash_fwd_sm90(
     int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_sl,
-    float scale, int causal, void* stream) {
+    float scale, int causal, int stages, void* stream) {
   if (D < 1 || D > 128 || B < 1 || Hkv < 1 || H % Hkv != 0 || L < 1 || S < 1) return -1;
   if (causal && L != S) return -1;
   const void* ptrs[4] = {q, k, v, o};
@@ -428,6 +432,19 @@ extern "C" int repro_flash_fwd_sm90(
       encode(&to, o, D, L, H, B, o_sb, o_sh, o_sl, BM))
     return -1;
   cudaStream_t cs = (cudaStream_t)stream;
-  if (D > 64) return launch<128, 2>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
-  return launch<64, 4>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+  if (D > 64) {
+    switch (stages) {
+      case 0:
+      case 2: return launch<128, 2>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+      case 3: return launch<128, 3>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+      default: return -1;
+    }
+  }
+  switch (stages) {
+    case 2: return launch<64, 2>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+    case 3: return launch<64, 3>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+    case 0:
+    case 4: return launch<64, 4>(tq, tk, tv, to, B, H, Hkv, L, S, scale, causal, cs);
+    default: return -1;
+  }
 }

@@ -28,6 +28,14 @@ contiguous): both kernels take strides, so ``ops.mha_forward`` passes
 transposed views of the model-side ``(B, L, H, D)`` tensors and nothing is
 copied or padded.
 
+``stages`` is the bf16 kernel's tiling parameter, the counterpart of the TPU
+kernel's ``block_q`` / ``block_k``: the depth of its K/V ring. ``None`` takes the
+kernel's default (2 above head_dim 64, 4 at 64 and below); the built variants
+are ``STAGES_SM90``. Any other value, or a ``stages`` with fp32 tensors, raises
+``ValueError`` on every device, so a setting the kernel would refuse fails on
+the CPU too. The ring's depth changes no arithmetic: the plain version checks
+it and computes as ever.
+
 A CPU tensor takes ``flash_attention_plain``. ``launches_sm90`` and
 ``launches_f32`` count the launches of each kernel, ``launches`` their sum;
 nothing else moves them.
@@ -54,6 +62,10 @@ from repro_torch.kernels._build import tma_addressable as _tma_addressable
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
+# csrc/flash_fwd_sm90.cu: the K/V ring depths built for each head-dim template
+# (D > 64 runs the 128-column one), and the one a call takes by default
+STAGES_SM90 = {128: (2, 3), 64: (2, 3, 4)}
+DEFAULT_STAGES_SM90 = {128: 2, 64: 4}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0        # kernel launches made by ``flash_attention``, both routes
@@ -63,16 +75,37 @@ _fn = None
 _fn_sm90 = None
 
 
+def head_dim_template(D: int) -> int:
+    """The head-dim template of csrc/flash_fwd_sm90.cu that runs head_dim ``D``."""
+    return 128 if D > 64 else 64
+
+
+def check_stages(stages, D: int, dtype) -> None:
+    """Raise ``ValueError`` unless the bf16 kernel has a variant of ``stages``
+    for head_dim ``D`` (``None``, the default, always passes)."""
+    if stages is None:
+        return
+    if dtype != torch.bfloat16:
+        raise ValueError(f"stages is the bf16 kernel's ring depth; got {dtype} tensors")
+    built = STAGES_SM90[head_dim_template(D)] if D <= 128 else ()
+    if isinstance(stages, bool) or not isinstance(stages, int) or stages not in built:
+        raise ValueError(f"the bf16 forward at head_dim {D} is built with stages in "
+                         f"{built}, got {stages!r}")
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          block_k: int = DEFAULT_BLOCK_K, pv_bf16: bool = False):
+                          block_k: int = DEFAULT_BLOCK_K, pv_bf16: bool = False,
+                          stages=None):
     """Plain PyTorch version of the kernels: same arithmetic, same layout.
 
     Online softmax over KV tiles of ``block_k`` with fp32 ``(acc, m, l)``, the
     ``-1e30`` sentinel, ``acc / max(l, 1e-30)`` at the end. P stays fp32 into
     P·V, as in the TPU kernel and the fp32 kernel; ``pv_bf16`` rounds P and V
     to bf16 before P·V (the row sums keep fp32 P), as the bf16 kernel does and
-    as ``repro.models.attention.flash_ref(pv_bf16=True)`` does.
+    as ``repro.models.attention.flash_ref(pv_bf16=True)`` does. ``stages`` is
+    checked as the kernel checks it and changes nothing else.
     """
+    check_stages(stages, q.shape[-1], q.dtype)
     B, H, L, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -117,7 +150,7 @@ def _entry_sm90():
     if _fn_sm90 is None:
         fn = _build.load("flash_fwd_sm90").repro_flash_fwd_sm90
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [p, p, p, p] + [i] * 6 + [i64] * 12 + [ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p] + [i] * 6 + [i64] * 12 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         _fn_sm90 = fn
     return _fn_sm90
@@ -142,18 +175,19 @@ def _check(q, k, v):
             raise ValueError("q, k and v must lie on one device")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, stages=None):
     """q: (B, H, L, D); k/v: (B, Hkv, S, D) -> (B, H, L, D), strides kept."""
     global launches, launches_sm90, launches_f32
     _check(q, k, v)
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("the causal mask has no query offset: it needs L == S, "
                          f"got L={q.shape[2]}, S={k.shape[2]}")
+    check_stages(stages, q.shape[3], q.dtype)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention has no kernel for {q.device}")
-    o = _launch(q, k, v, causal)
+    o = _launch(q, k, v, causal, stages)
     if q.dtype == torch.bfloat16:
         launches_sm90 += 1
     else:
@@ -162,7 +196,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return o
 
 
-def _launch(q, k, v, causal):
+def _launch(q, k, v, causal, stages=None):
     """The CUDA route: checks what the kernels take, then launches one of them."""
     B, H, L, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
@@ -187,6 +221,8 @@ def _launch(q, k, v, causal):
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
             1.0 / math.sqrt(D), int(causal))
+    if sm90:
+        args += (stages or 0,)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -200,10 +236,10 @@ class FlashAttentionFn(torch.autograd.Function):
     (kernel or plain), the backward is autograd of the plain version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, stages):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, stages=stages)
 
     @staticmethod
     def backward(ctx, grad_o):
@@ -215,4 +251,4 @@ class FlashAttentionFn(torch.autograd.Function):
                                       pv_bf16=q.dtype == torch.bfloat16 and q.is_cuda)
             got = iter(torch.autograd.grad(o, [t for t, w in zip(ins, want) if w],
                                            grad_o))
-        return tuple(next(got) if w else None for w in want) + (None,)
+        return tuple(next(got) if w else None for w in want) + (None, None)

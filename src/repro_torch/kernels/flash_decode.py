@@ -36,6 +36,15 @@ contiguous): ``ops.decode_forward`` passes transposed views of one layer's
 ``(B, S_max, Hkv, D)`` cache slice and nothing is copied. ``cache_len`` is one
 host ``int`` for the whole batch.
 
+``n_split`` is the kernels' tiling parameter, the counterpart of the TPU
+kernel's ``block_k``: how many CTAs (one cluster) share a (batch, kv-head)'s
+``[0, cache_len)``. ``None`` takes ``num_splits_sm90``; an explicit value must
+lie in ``1..min(MAX_SPLIT_SM90, ceil(cache_len / TILE_SM90))`` (no split is
+empty), or ``ValueError`` is raised on every device, as the C entry points
+refuse it. With an explicit ``n_split`` the plain version computes each
+split's ``(acc, m, l)`` over the kernels' balanced runs of 16-row tiles and
+merges them by log-sum-exp, so the CPU sees the split arithmetic.
+
 A CPU tensor takes ``flash_decode_plain``. ``launches_sm90`` and
 ``launches_f32`` count the launches of each route, ``launches`` their sum;
 nothing else moves them.
@@ -66,23 +75,52 @@ _fns: dict = {}         # source name -> its C entry point
 
 
 def flash_decode_plain(q, k_cache, v_cache, cache_len: int, *,
-                       return_partials: bool = False):
+                       return_partials: bool = False, n_split=None):
     """Plain PyTorch version of the kernels: same arithmetic, same layout."""
     B, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     clen = _clamp_len(cache_len, S)
+    check_n_split(n_split, clen)
     qg = q.reshape(B, Hkv, G, D).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache[:, :, :clen].float())
-    s = s * (1.0 / math.sqrt(D))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhgs,bhsd->bhgd", p, v_cache[:, :, :clen].float())
+    if n_split is None:
+        acc, m, l = _attend(qg, k_cache, v_cache, 0, clen)
+    else:
+        # each split's partial over its run of whole tiles, merged by log-sum-exp
+        tiles = -(-clen // TILE_SM90)
+        parts = [_attend(qg, k_cache, v_cache, s * tiles // n_split * TILE_SM90,
+                         min(clen, (s + 1) * tiles // n_split * TILE_SM90))
+                 for s in range(n_split)]
+        m = torch.stack([pm for _, pm, _ in parts]).amax(dim=0)
+        acc, l = 0.0, 0.0
+        for pacc, pm, pl in parts:
+            w = torch.exp(pm - m)
+            acc = acc + pacc * w[..., None]
+            l = l + pl * w
     if return_partials:
         return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def _attend(qg, k_cache, v_cache, lo: int, hi: int):
+    """Unnormalised fp32 ``(acc, m, l)`` of ``qg`` (B, Hkv, G, D) over cache rows [lo, hi)."""
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache[:, :, lo:hi].float())
+    s = s * (1.0 / math.sqrt(qg.shape[-1]))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return torch.einsum("bhgs,bhsd->bhgd", p, v_cache[:, :, lo:hi].float()), m, p.sum(dim=-1)
+
+
+def check_n_split(n_split, clen: int) -> None:
+    """Raise ``ValueError`` unless the kernels take ``n_split`` splits of
+    ``[0, clen)`` (``None``, the split rule, always passes)."""
+    if n_split is None:
+        return
+    most = min(MAX_SPLIT_SM90, -(-clen // TILE_SM90))
+    if isinstance(n_split, bool) or not isinstance(n_split, int) or not 1 <= n_split <= most:
+        raise ValueError(f"n_split must be an int in 1..{most} at cache_len {clen} "
+                         f"(no empty split, at most one cluster), got {n_split!r}")
 
 
 def _clamp_len(cache_len, S: int) -> int:
@@ -153,17 +191,17 @@ def _check_limits(D: int, G: int) -> None:
                          f"KV head, got {G}")
 
 
-def _launch_sm90(q, k_cache, v_cache, clen, return_partials, stream):
+def _launch_sm90(q, k_cache, v_cache, clen, return_partials, stream, n_split=None):
     return _launch("flash_decode_sm90", "bf16", q, k_cache, v_cache, clen,
-                   return_partials, stream)
+                   return_partials, stream, n_split)
 
 
-def _launch_f32(q, k_cache, v_cache, clen, return_partials, stream):
+def _launch_f32(q, k_cache, v_cache, clen, return_partials, stream, n_split=None):
     return _launch("flash_decode", "fp32", q, k_cache, v_cache, clen,
-                   return_partials, stream)
+                   return_partials, stream, n_split)
 
 
-def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream):
+def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream, n_split):
     """Checks what the kernel of ``csrc/<name>.cu`` takes, then launches it once."""
     B, H, D = q.shape
     Hkv = k_cache.shape[1]
@@ -178,7 +216,8 @@ def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream):
                              "chunks, which needs a 16-byte aligned base and strides that "
                              "are multiples of 16 bytes (TMA's rule); got strides "
                              f"{t.stride()} at {t.data_ptr():#x}")
-    n_split = num_splits_sm90(clen, B * Hkv)
+    if n_split is None:
+        n_split = num_splits_sm90(clen, B * Hkv)
     if not q.is_contiguous() or q.data_ptr() % 16:
         q = q.clone(memory_format=torch.contiguous_format)
     if return_partials:
@@ -198,7 +237,7 @@ def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream):
 
 
 def flash_decode(q, k_cache, v_cache, cache_len: int, *,
-                 return_partials: bool = False):
+                 return_partials: bool = False, n_split=None):
     """q: (B, H, D); caches: (B, Hkv, S, D); cache_len: one host int.
 
     Returns (B, H, D) in q's type, or the unnormalised fp32 ``acc`` (B, H, D)
@@ -209,16 +248,17 @@ def flash_decode(q, k_cache, v_cache, cache_len: int, *,
     _check(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, cache_len,
-                                  return_partials=return_partials)
+                                  return_partials=return_partials, n_split=n_split)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode has no kernel for {q.device}")
     clen = _clamp_len(cache_len, k_cache.shape[2])
+    check_n_split(n_split, clen)
     sm90 = q.dtype == torch.bfloat16
     with _build.on_device(q.device):
         # the raw handle of the current stream, without a Stream object
         stream = torch._C._cuda_getCurrentRawStream(q.device.index)
         launch = _launch_sm90 if sm90 else _launch_f32
-        res = launch(q, k_cache, v_cache, clen, return_partials, stream)
+        res = launch(q, k_cache, v_cache, clen, return_partials, stream, n_split)
     if sm90:
         launches_sm90 += 1
     else:

@@ -6,6 +6,9 @@ the hand-written kernel, a CPU tensor to the kernel's plain version) or
 kernels with their plain versions on the card).
 
 The transposes below are views: the kernels take strides, so nothing is copied.
+``stages`` (forward) and ``n_split`` (decode) are the kernels' tiling
+parameters, passed through to the wrappers; ``None`` keeps each kernel's own
+default (see ``flash_attention`` and ``flash_decode``).
 
 With grad mode on and q, k or v requiring grad, ``mha_forward`` goes through
 ``flash_attention.FlashAttentionFn``: the same forward, and a backward (autograd
@@ -26,7 +29,8 @@ def _check_mode(mode):
         raise ValueError(f"mode must be None or 'reference', got {mode!r}")
 
 
-def mha_forward(q, k, v, *, causal: bool = True, mode: Optional[str] = None):
+def mha_forward(q, k, v, *, causal: bool = True, mode: Optional[str] = None,
+                stages: Optional[int] = None):
     """Layout: q (B, L, H, D); k/v (B, S, Hkv, D) — model-side layout."""
     _check_mode(mode)
     if causal and q.shape[1] != k.shape[1]:
@@ -35,17 +39,18 @@ def mha_forward(q, k, v, *, causal: bool = True, mode: Optional[str] = None):
                          f"L={q.shape[1]}, S={k.shape[1]}")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if mode == "reference":
-        o = _fa.flash_attention_plain(qt, kt, vt, causal=causal)
+        o = _fa.flash_attention_plain(qt, kt, vt, causal=causal, stages=stages)
     elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                       or v.requires_grad):
-        o = _fa.FlashAttentionFn.apply(qt, kt, vt, causal)
+        o = _fa.FlashAttentionFn.apply(qt, kt, vt, causal, stages)
     else:
-        o = _fa.flash_attention(qt, kt, vt, causal=causal)
+        o = _fa.flash_attention(qt, kt, vt, causal=causal, stages=stages)
     return o.transpose(1, 2)
 
 
 def decode_forward(q, k_cache, v_cache, cache_len: int, *,
-                   mode: Optional[str] = None, return_partials: bool = False):
+                   mode: Optional[str] = None, return_partials: bool = False,
+                   n_split: Optional[int] = None):
     """Layout: q (B, 1, H, D); caches (B, S, Hkv, D) — model-side layout.
 
     ``cache_len`` is one host int. Returns (B, 1, H, D), or with
@@ -57,7 +62,7 @@ def decode_forward(q, k_cache, v_cache, cache_len: int, *,
         raise ValueError(f"decode_forward takes one query token, got L={L}")
     fn = _fd.flash_decode_plain if mode == "reference" else _fd.flash_decode
     out = fn(q.reshape(B, H, D), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-             cache_len, return_partials=return_partials)
+             cache_len, return_partials=return_partials, n_split=n_split)
     if return_partials:
         return out
     return out.reshape(B, 1, H, D)

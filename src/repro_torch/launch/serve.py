@@ -18,8 +18,10 @@ copy is the bf16 embeddings alone); at 40 layers ``dbrx-132b`` is 132 B paramete
 defaults to ``cuda`` and a missing card is an error; ``--device cpu`` runs the
 plain PyTorch path. Before serving it prints the simulator's split-KV decode
 prediction for the serving workload on the H800 preset, as the JAX launcher
-does. The JAX launcher's ``SimFA-TPU`` line has no counterpart while
-``core/tpu/`` is not ported.
+does, and, where the JAX launcher prints its ``SimFA-TPU`` line, the
+``SimFA-H100`` line: ``core/sm90``'s plan for the port's own bf16 decode kernel
+(its split count, predicted µs and bound) beside the kernel's default split,
+which the engine keeps.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.llama3 import AttnWorkload
 from repro_torch.core import analytical
 from repro_torch.core.machine import H800
+from repro_torch.core.sm90.analytical import analyze_sm90
+from repro_torch.core.sm90.autotune import autotune_decode
 from repro_torch.models import api
 from repro_torch.serve.engine import Request, ServeEngine, StragglerPolicy
 
@@ -65,6 +69,22 @@ def decode_prediction(cfg, slots: int, max_seq: int) -> str:
             f"{gpu.dram_bytes/1e6:.2f} MB DRAM/step)")
 
 
+def sm90_decode_prediction(cfg, slots: int, max_seq: int) -> str:
+    """SimFA-H100's plan for the bf16 decode kernel (``csrc/flash_decode_sm90.cu``)
+    at ``slots`` rows of a full ``max_seq`` cache, beside the kernel's default."""
+    w = AttnWorkload(name="decode", B=slots, L=1, S=max_seq,
+                     H_kv=cfg.num_kv_heads or 4, G=cfg.q_group_size or 1,
+                     D=cfg.head_dim)
+    if w.D > 128 or w.G > 16:
+        return (f"SimFA-H100 bf16 decode kernel: no plan (head_dim {w.D}, {w.G} query "
+                "heads a KV head; the kernel takes <= 128 and <= 16)")
+    plan = autotune_decode(w)
+    rule = analyze_sm90(w, kernel="flash_decode")
+    return (f"SimFA-H100 bf16 decode kernel plan: n_split {plan.n_split}, "
+            f"{plan.predicted_us:.1f} us ({plan.bottleneck}-bound); the kernel's "
+            f"default n_split {rule.n_split}: {rule.latency*1e6:.1f} us")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -74,6 +94,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     params = api.init(cfg, args.seed, device=device)
     print(decode_prediction(cfg, args.slots, args.max_seq))
+    print(sm90_decode_prediction(cfg, args.slots, args.max_seq))
 
     eng = ServeEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
                       straggler=StragglerPolicy(expected_step_s=0.5, factor=10),

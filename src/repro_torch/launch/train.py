@@ -16,8 +16,10 @@ gradients and AdamW moments, nor ``rwkv6-7b`` (7.58 B parameters, about
 121 GB). ``whisper-large-v3`` (1.62 B, about 26 GB) would. The port runs on one device:
 ``--dp`` and ``--tp`` other than 1 are refused (``parallel/`` is not ported).
 Before training it prints the simulator's attention prediction for the
-training workload on the H800 preset, where the JAX launcher prints its
-SimFA-TPU line (``core/tpu/`` is not ported).
+training workload on the H800 preset and, where the JAX launcher prints its
+SimFA-TPU line, the ``SimFA-H100`` line: ``core/sm90``'s plan for the port's
+own bf16 forward kernel (its ring depth, predicted µs and bound) beside the
+kernel's default depth, which the trainer keeps.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.llama3 import AttnWorkload
 from repro_torch.core import analytical
 from repro_torch.core.machine import H800
+from repro_torch.core.sm90.analytical import analyze_sm90
+from repro_torch.core.sm90.autotune import autotune_flash
 from repro_torch.data.synthetic import DataIterator
 from repro_torch.models import api
 from repro_torch.serve.engine import StragglerPolicy
@@ -69,6 +73,22 @@ def attention_prediction(cfg, batch: int, seq: int) -> str:
             f"({gpu.bottleneck}-bound) — watchdog calibrates off step 1")
 
 
+def sm90_attention_prediction(cfg, batch: int, seq: int) -> str:
+    """SimFA-H100's plan for one layer's bf16 forward kernel
+    (``csrc/flash_fwd_sm90.cu``, causal) at the training workload, beside the
+    kernel's default."""
+    w = AttnWorkload(name="train", B=batch, L=seq, S=seq,
+                     H_kv=cfg.num_kv_heads or 4, G=cfg.q_group_size or 1,
+                     D=cfg.head_dim, causal=True)
+    if w.D > 128:
+        return f"SimFA-H100 bf16 forward kernel: no plan (head_dim {w.D} > 128)"
+    plan = autotune_flash(w, causal=True)
+    rule = analyze_sm90(w, kernel="flash_fwd")
+    return (f"SimFA-H100 bf16 forward kernel plan: stages {plan.stages}, "
+            f"{plan.predicted_us:.1f} us/layer ({plan.bottleneck}-bound); the kernel's "
+            f"default stages {rule.stages}: {rule.latency*1e6:.1f} us/layer")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.dp != 1 or args.tp != 1:
@@ -99,6 +119,7 @@ def main(argv=None):
     # the simulator's prediction is printed beside it
     watchdog = StragglerPolicy(expected_step_s=1.0, factor=5.0)
     print(attention_prediction(cfg, args.batch, args.seq))
+    print(sm90_attention_prediction(cfg, args.batch, args.seq))
 
     step_fn = trainer.make_train_step(cfg, run)
     data = DataIterator(cfg, batch=args.batch, seq=args.seq, start_step=start)

@@ -104,6 +104,16 @@ Phases, each printing one JSON line:
            forward-kernel launches a step (the forward and its recompute);
            step ms, tokens/s, model FLOP/s share, peak memory, and one more
            step under the profiler (with the forward kernel's row)
+  parallel olmo-1b at full width and depth through the sharded trainer: a
+           one-rank NCCL group on a local file store, launch/train.py's main
+           with --dp 1 --tp 1 (its (data, model) mesh, parameters and AdamW
+           moments as DTensors placed by the sharding rules, remat "full",
+           batch 4 x 512, 3 steps, the bf16 forward kernel), and the same 3
+           steps through the unsharded trainer from the same seed and
+           batches: losses and global gradient norms within 1e-5 relative,
+           the same forward-kernel launches a step (2 x 16) on both routes;
+           step ms and peak memory of both; the card's total_memory against
+           launch/specs.py's HBM_BUDGET
   profile  (only when named in --phases) one prefill and four decode steps of
            the full model under torch.profiler: wall time, device-busy time,
            idle share and the kernels that take most of the device time
@@ -120,12 +130,15 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -143,6 +156,9 @@ from repro_torch.core.sm90.tracegen import simulate_sm90      # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
+from repro_torch.launch import specs                          # noqa: E402
+from repro_torch.launch import train as launch_train          # noqa: E402
+from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models import api, mamba, moe, rwkv          # noqa: E402
 from repro_torch.models.attention import knob_attention       # noqa: E402
 from repro_torch.serve.decode import make_prefill_step, make_serve_step  # noqa: E402
@@ -214,6 +230,8 @@ TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
     ((2, 8, 2, 300, 128), torch.float32),      # fp32, G = 4, ragged rows
 ]
 TRAIN_TOL = 1e-3       # step 1's loss and grad-norm, kernels against mode="reference", relative
+PARALLEL = dict(arch="olmo-1b", batch=4, seq=512, steps=3, remat="full")
+PARALLEL_TOL = 1e-5    # sharded (1, 1) mesh against the unsharded trainer: losses, grad norms
 WGRAD_TOL = 4e-2       # wq/wk/wv grads, kernels against the plain bf16-P route, relative in
                        # norm: twice the largest reading (1.92e-2, layer 0 wq)
 MOE = dict(arch="dbrx-132b", layers=2, requests=8, prompt_len=512, slots=4, max_new=16,
@@ -1000,8 +1018,12 @@ def plan_decode(rng, w, m):
             for i in range(n):
                 ops.decode_forward(qd, ck[i], cv[i], clen, n_split=split)
         rep = analyze_sm90(w, m, kernel="flash_decode", n_split=split)
+        # a window of at least 20 kernels, so that one lost record stays within
+        # kernel_ms's 90 % (decode_32k sweeps one layer a call)
+        iters = max(5, -(-20 // n))
         timed.append(dict(n_split=split, predicted_us=rep.latency * 1e6,
-                          ms=kernel_ms(sweep, calls=n, iters=5, warmup=1), max_abs_err=err))
+                          ms=kernel_ms(sweep, calls=n, iters=iters, warmup=1),
+                          max_abs_err=err))
     return plan_row(w, "n_split", pick, fd.num_splits_sm90(clen, s["B"] * s["Hkv"]), timed)
 
 
@@ -1965,6 +1987,133 @@ def phase_train(kernels):
     torch.cuda.empty_cache()
 
 
+def recorded_steps(make_step, log):
+    """``make_step`` wrapped so that each step it makes appends its step ms, its
+    bf16 forward-kernel launches, the peak memory since the first step began
+    (the steps' peak, not the set-up's) and its metrics (floats) to ``log``."""
+    def make(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            n0 = fa.launches_sm90
+            torch.cuda.synchronize()
+            if not log:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": fa.launches_sm90 - n0,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        **{k: float(v) for k, v in m.items()}})
+            return state, m
+        return recorded
+    return make
+
+
+def phase_parallel(kernels):
+    """Full-width olmo-1b through launch/train.py's sharded trainer on a (1, 1)
+    mesh, held to the unsharded trainer."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not specs.HBM_BUDGET < total:
+        raise AssertionError(f"parallel: launch/specs.py's HBM_BUDGET {specs.HBM_BUDGET} is "
+                             f"not below the card's total_memory {total}")
+    cfg = registry.get(PARALLEL["arch"])
+    B, S, n = PARALLEL["batch"], PARALLEL["seq"], PARALLEL["steps"]
+    # the launcher's optimizer settings and data (seed 0, from step 0)
+    run = trainer.RunConfig(remat=PARALLEL["remat"], microbatches=1, opt=opt.OptConfig(
+        lr=3e-4, warmup_steps=10, total_steps=n, schedule=cfg.lr_schedule))
+    data = DataIterator(cfg, batch=B, seq=S)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in next(data).items()}
+               for _ in range(n)]
+
+    plain = []
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(cfg, run, 0, device=DEV)
+    init_peak = {"unsharded": torch.cuda.max_memory_allocated() / 1e9}
+    step_fn = recorded_steps(trainer.make_train_step, plain)(cfg, run)
+    for batch in batches:
+        state, _ = step_fn(state, batch)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    sharded = []
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="parallel_", dir=root)
+    argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(S), "--steps", str(n),
+            "--remat", PARALLEL["remat"], "--dp", "1", "--tp", "1",
+            "--ckpt-dir", os.path.join(work, "ckpt"), "--ckpt-every", str(n + 1)]
+    make_step = trainer.make_train_step
+    trainer.make_train_step = recorded_steps(make_step, sharded)
+    dist.init_process_group("nccl", init_method=f"file://{work}/store", rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = launch_train.main(argv)
+        main_s = time.perf_counter() - t0
+        counts = read_counts()
+        trainer.make_train_step = make_step
+        torch.cuda.empty_cache()
+        # one more step of each route under the profiler, in turns (sharded
+        # first: the unsharded route had the card's first steps)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device=DEV), mesh)
+        init_peak["sharded"] = torch.cuda.max_memory_allocated() / 1e9
+        step_fn = trainer.make_train_step(cfg, run, mesh=mesh)
+        batch = trainer.shard_batch(batches[0], mesh)
+        profile = {"sharded": profiled(lambda: step_fn(state, batch), watch=("nccl",))}
+    finally:
+        trainer.make_train_step = make_step
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    state = trainer.init_state(cfg, run, 0, device=DEV)
+    step_fn = trainer.make_train_step(cfg, run)
+    profile["unsharded"] = profiled(lambda: step_fn(state, batches[0]), watch=("nccl",))
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    L = cfg.num_layers
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+           for a, b in zip(sharded, plain)]
+    emit({"phase": "parallel", "model": cfg.name, "layers": L, "mesh": {"data": 1, "model": 1},
+          "batch": B, "seq": S, "steps": n, "remat": run.remat, "launcher_rc": rc,
+          "launcher_seconds": main_s,
+          "sharded": {"losses": [x["loss"] for x in sharded],
+                      "grad_norms": [x["grad_norm"] for x in sharded],
+                      "step_ms": [x["ms"] for x in sharded],
+                      "flash_fwd_launches_per_step": [x["launches"] for x in sharded],
+                      "steps_peak_memory_gb": max(x["peak_gb"] for x in sharded),
+                      "init_peak_memory_gb": init_peak["sharded"]},
+          "unsharded": {"losses": [x["loss"] for x in plain],
+                        "grad_norms": [x["grad_norm"] for x in plain],
+                        "step_ms": [x["ms"] for x in plain],
+                        "flash_fwd_launches_per_step": [x["launches"] for x in plain],
+                        "steps_peak_memory_gb": max(x["peak_gb"] for x in plain),
+                        "init_peak_memory_gb": init_peak["unsharded"]},
+          "profile_one_step": profile,
+          "relative_difference": rel, "tolerance": PARALLEL_TOL, "launches": counts,
+          "total_memory": total, "hbm_budget": specs.HBM_BUDGET})
+    if rc != 0 or len(sharded) != n:
+        raise AssertionError(f"parallel: launch/train.py returned {rc} after {len(sharded)} "
+                             f"of {n} steps")
+    if any(x > PARALLEL_TOL for r in rel for x in r.values()):
+        raise AssertionError(f"parallel: sharded against unsharded beyond {PARALLEL_TOL}: {rel}")
+    want = [2 * L] * n
+    got = [x["launches"] for x in sharded]
+    if got != want or [x["launches"] for x in plain] != want or counts["flash_fwd"] != 2 * L * n:
+        raise AssertionError(f"parallel: forward-kernel launches a step {got} sharded, "
+                             f"{[x['launches'] for x in plain]} unsharded, {counts} in the "
+                             f"launcher's run; want {want}")
+    for kern in kernels:
+        if kern["name"] == "flash_fwd":
+            kern["launches_parallel"] = counts["flash_fwd"]
+
+
 def profiled(fn, top=12, watch=()):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
@@ -2026,7 +2175,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,sim,plan,serve,path,path_f32,moe,hybrid,"
-                            "encdec,ssm,train")
+                            "encdec,ssm,train,parallel")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -2061,11 +2210,14 @@ def main(argv=None):
         phase_ssm(kernels)
     if "train" in phases:
         phase_train(kernels)
+    if "parallel" in phases:
+        phase_parallel(kernels)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "plan", "serve", "path",
-                                         "path_f32", "moe", "hybrid", "encdec", "ssm", "train"))
+                                         "path_f32", "moe", "hybrid", "encdec", "ssm", "train",
+                                         "parallel"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,13 @@ with ``"dtype": "bfloat16"`` in the manifest and read back bit for bit.
 Restore loads each leaf on the host, checks it against the target's leaf
 (count, shape and dtype must match) and puts it on ``device`` (by default the
 target leaf's own device), with the target leaf's ``requires_grad``.
+
+Sharded state (``DTensor`` leaves, the sharded trainer's): ``save`` gathers
+each leaf's full tensor, so every rank of its mesh must call it, and only the
+manager made with ``writer=True`` (rank 0) writes; ``restore`` places each
+full array onto the target leaf's mesh and placements, each rank keeping its
+shards (the reference's ``restore(..., shardings=)``): a checkpoint saved on
+one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import tree
 
@@ -57,10 +65,11 @@ def _dtype_name(leaf) -> str:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep_last: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, writer: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
+        self.writer = writer
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -70,7 +79,14 @@ class CheckpointManager:
         """Snapshot to host memory synchronously, write to disk (async by
         default so training continues during I/O)."""
         self.wait()                              # one outstanding save max
-        host = [_to_host(x) for x in tree.leaves(state)]   # device->host now
+        host = []
+        for x in tree.leaves(state):             # device->host now
+            if isinstance(x, DTensor):
+                x = x.full_tensor()              # every rank of the mesh gathers
+            if self.writer:
+                host.append(_to_host(x))
+        if not self.writer:
+            return
         if blocking is None:
             blocking = not self.async_save
         if blocking:
@@ -157,6 +173,8 @@ class CheckpointManager:
             else:
                 x = torch.from_numpy(a)
             x = x.to(device if device is not None else t.device)
+            if isinstance(t, DTensor):
+                x = distribute_tensor(x, t.device_mesh, t.placements, src_data_rank=None)
             out.append(x.requires_grad_(t.requires_grad))
         return tree.rebuild(target, out)
 

@@ -1,20 +1,34 @@
-"""Training launcher: state init on the card, checkpoint/restart, straggler
-watchdog calibrated off the first step, preemption-signal save.
+"""Training launcher: a (dp, tp) mesh over the process group, state init on
+the card placed by the sharding rules, checkpoint/restart, straggler watchdog
+calibrated off the first step, preemption-signal save.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
         --batch 8 --seq 64 --steps 20
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --device cpu --dp 2 --tp 2 --reduced --steps 3
 
 ``--device`` defaults to ``cuda`` and a missing card is an error; ``--device
-cpu`` trains through the plain PyTorch path. Every ``--arch`` value trains:
-dense, moe, vlm, hybrid, ssm and encdec (the loss adds 0.01 x the MoE
-load-balance loss; an encdec batch carries the stub front end's frames). A moe
-model at published width does not fit one card: one ``dbrx-132b`` layer with
-its embeddings is about 4.5 B parameters, about 72 GB of fp32 weights,
-gradients and AdamW moments before activations. Nor does ``zamba2-7b`` at
-published width: its 5.63 B parameters come to about 90 GB of fp32 weights,
-gradients and AdamW moments, nor ``rwkv6-7b`` (7.58 B parameters, about
-121 GB). ``whisper-large-v3`` (1.62 B, about 26 GB) would. The port runs on one device:
-``--dp`` and ``--tp`` other than 1 are refused (``parallel/`` is not ported).
+cpu`` trains through the plain PyTorch path on gloo. Under
+``torch.distributed.run`` each process is one rank (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``; rank r on ``cuda:LOCAL_RANK`` under NCCL); without it, and
+without a process group set up by the caller, the launcher makes a one-rank
+group on a local file store, so one card runs the same code. The mesh is
+``(dp, tp)`` over ``("data", "model")`` (``launch/mesh.py``): a group of another
+size raises ``MeshSizeError``. Parameters and AdamW moments are ``DTensor``s
+placed by ``parallel.sharding.param_specs``; each rank trains on its rows of
+the batch (``trainer.make_train_step(..., mesh=)``), every model rank of a data
+row at full width (ROADMAP C25). Only rank 0 prints and writes checkpoints;
+every rank takes part in gathering them, and a checkpoint restores under
+another ``(dp, tp)``.
+
+Every ``--arch`` value trains: dense, moe, vlm, hybrid, ssm and encdec (the
+loss adds 0.01 x the MoE load-balance loss; an encdec batch carries the stub
+front end's frames). A moe model at published width does not fit one card:
+one ``dbrx-132b`` layer with its embeddings is about 4.5 B parameters, about
+72 GB of fp32 weights, gradients and AdamW moments before activations. Nor
+does ``zamba2-7b`` at published width: its 5.63 B parameters come to about
+90 GB of fp32 weights, gradients and AdamW moments, nor ``rwkv6-7b`` (7.58 B
+parameters, about 121 GB). ``whisper-large-v3`` (1.62 B, about 26 GB) would.
 Before training it prints the simulator's attention prediction for the
 training workload on the H800 preset and, where the JAX launcher prints its
 SimFA-TPU line, the ``SimFA-H100`` line: ``core/sm90``'s plan for the port's
@@ -24,10 +38,14 @@ kernel's default depth, which the trainer keeps.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import signal
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import registry
@@ -37,6 +55,7 @@ from repro_torch.core.machine import H800
 from repro_torch.core.sm90.analytical import analyze_sm90
 from repro_torch.core.sm90.autotune import autotune_flash
 from repro_torch.data.synthetic import DataIterator
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import api
 from repro_torch.serve.engine import StragglerPolicy
 from repro_torch.train import optimizer as opt
@@ -89,39 +108,77 @@ def sm90_attention_prediction(cfg, batch: int, seq: int) -> str:
             f"default stages {rule.stages}: {rule.latency*1e6:.1f} us/layer")
 
 
+@contextlib.contextmanager
+def process_group(device: torch.device):
+    """The default process group for the run: the caller's, if one is set up;
+    else ``torch.distributed.run``'s (from its environment) or a one-rank group
+    on a local file store, either destroyed on exit. NCCL for a CUDA device,
+    gloo for the CPU."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _all_ranks_agree(flag: bool, device) -> bool:
+    """True on every rank when any rank's ``flag`` is: a checkpoint's gather
+    needs every rank in the same step."""
+    if dist.get_world_size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port trains on one device; "
-            "parallel/ (meshes, sharding) is not ported to repro_torch yet")
-
     device = api.resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    with process_group(device):
+        return _train(args, device)
+
+
+def _train(args, device):
+    mesh = make_mesh((args.dp, args.tp), ("data", "model"))
+    lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    print(f"device {device}; arch {cfg.name} "
-          f"({cfg.param_count()/1e6:.1f}M params analytic)")
+    say(f"mesh (data {args.dp}, model {args.tp}) on {dist.get_world_size()} rank(s), "
+        f"device {device}; arch {cfg.name} ({cfg.param_count()/1e6:.1f}M params analytic)")
 
     run = trainer.RunConfig(
         microbatches=args.microbatches, remat=args.remat,
         opt=opt.OptConfig(lr=args.lr, warmup_steps=10,
                           total_steps=args.steps, schedule=cfg.lr_schedule))
-    state = trainer.init_state(cfg, run, 0, device=device)
+    state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device=device), mesh)
 
-    ckpt = CheckpointManager(args.ckpt_dir, keep_last=2)
+    ckpt = CheckpointManager(args.ckpt_dir, keep_last=2, writer=lead)
     start = 0
     if ckpt.latest_step() is not None:
         start, state = ckpt.restore_latest(state)
-        print(f"[restart] resumed from step {start}")
+        say(f"[restart] resumed from step {start}")
 
     # straggler deadline: the first step's time (set below) times the factor;
     # the simulator's prediction is printed beside it
     watchdog = StragglerPolicy(expected_step_s=1.0, factor=5.0)
-    print(attention_prediction(cfg, args.batch, args.seq))
-    print(sm90_attention_prediction(cfg, args.batch, args.seq))
+    say(attention_prediction(cfg, args.batch, args.seq))
+    say(sm90_attention_prediction(cfg, args.batch, args.seq))
 
-    step_fn = trainer.make_train_step(cfg, run)
+    step_fn = trainer.make_train_step(cfg, run, mesh=mesh)
     data = DataIterator(cfg, batch=args.batch, seq=args.seq, start_step=start)
 
     # preemption: SIGTERM triggers a final checkpoint before exit
@@ -129,7 +186,9 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, lambda *a: preempted.__setitem__("flag", True))
 
     for step in range(start, args.steps):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+        batch = trainer.shard_batch(
+            {k: torch.from_numpy(v).to(device) for k, v in next(data).items()},
+            mesh, args.microbatches)
         t0 = time.time()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])             # waits for the step
@@ -137,19 +196,20 @@ def main(argv=None):
         if step == start:
             watchdog.expected_step_s = dt          # calibrate
         slow = watchdog.observe(dt)
-        print(f"step {step+1:4d} loss={loss:.4f} "
-              f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms"
-              + ("  [STRAGGLER]" if slow else ""), flush=True)
-        if (step + 1) % args.ckpt_every == 0 or preempted["flag"]:
+        say(f"step {step+1:4d} loss={loss:.4f} "
+            f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms"
+            + ("  [STRAGGLER]" if slow else ""), flush=True)
+        stop = _all_ranks_agree(preempted["flag"], device)
+        if (step + 1) % args.ckpt_every == 0 or stop:
             ckpt.save(step + 1, state)
-        if preempted["flag"]:
+        if stop:
             ckpt.wait()
-            print("[preempt] checkpoint published; exiting")
+            say("[preempt] checkpoint published; exiting")
             return 17
     ckpt.wait()
     ckpt.save(args.steps, state, blocking=True)
-    print(f"done: {args.steps} steps; {watchdog.slow_steps} straggler "
-          f"step(s); checkpoints in {args.ckpt_dir}")
+    say(f"done: {args.steps} steps; {watchdog.slow_steps} straggler "
+        f"step(s); checkpoints in {args.ckpt_dir}")
     return 0
 
 

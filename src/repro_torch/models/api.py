@@ -14,7 +14,7 @@ from typing import Any, Dict, Union
 
 import torch
 
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, layers, transformer
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -35,12 +35,17 @@ def require_ported(cfg):
 
 def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
     """Seeded fp32 parameters on ``device``. ``seed`` may be a ``torch.Generator``
-    that already lives on that device."""
+    that already lives on that device. On ``device="meta"`` the tree holds the
+    parameters' shapes and dtypes only (the counterpart of the reference's
+    ``jax.eval_shape(lambda: api.init(cfg, key))``): nothing is drawn, so a model
+    of any width builds in no memory, and ``seed`` is ignored."""
     require_ported(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+        dev = resolve_device(device)
+        gen = (layers.SHAPE_ONLY if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(int(seed)))
     if cfg.family == "encdec":
         return encdec.init_encdec(cfg, gen)
     return transformer.init_lm(cfg, gen)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.parallel import ctx as pctx
 
 NEG_INF = -1e30
 
@@ -116,9 +117,7 @@ def decode_attend(q, k_cache, v_cache, cache_len, *, q_offset=None):
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     qg = q.reshape(B, L, Hkv, G, D).float() * (1.0 / math.sqrt(D))
-    s = torch.einsum("blhgd,bshd->blhgs", qg, k_cache.float())
-    # (the sharding constraint the reference puts on the scores here has no
-    # counterpart on one device)
+    s = pctx.constrain(torch.einsum("blhgd,bshd->blhgs", qg, k_cache.float()), "scores_dec")
     pos = torch.arange(S, device=q.device)
     clen = torch.as_tensor(cache_len, device=q.device).expand(B)
     valid = pos[None, :] < clen[:, None]
@@ -237,6 +236,4 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     else:
         o = ops.mha_forward(q, k, v, causal=causal, mode=mode)
     out = layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
-    # (the reference constrains the collected K/V's sharding here; one device
-    # has nothing to constrain)
-    return out, (k, v)
+    return out, (pctx.constrain(k, "kv_collect"), pctx.constrain(v, "kv_collect"))

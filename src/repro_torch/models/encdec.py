@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models import attention, layers
 from repro_torch.models.transformer import _checkpointed
+from repro_torch.parallel import ctx as pctx
 
 POS_DEC_ROWS = 65536   # rows of the decoder's learned position table
 
@@ -80,7 +81,7 @@ def encode(cfg, params, frames, *, attn_fn=None, remat="full", mode=None):
     block = _checkpointed(partial(_enc_block, cfg=cfg, positions=positions,
                                   attn_fn=attn_fn, mode=mode), remat)
     for blk in params["enc_blocks"]:
-        x = block(blk, x)
+        x = pctx.constrain(block(blk, x))
     return layers.apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -127,7 +128,7 @@ def decode_train(cfg, params, tokens, enc_h, *, attn_fn=None, remat="full", mode
     block = _checkpointed(partial(_dec_train_block, cfg=cfg, positions=positions,
                                   attn_fn=attn_fn, mode=mode), remat)
     for blk in params["dec_blocks"]:
-        x = block(blk, x, enc_h)
+        x = pctx.constrain(block(blk, x, enc_h))
     return layers.apply_norm(cfg.norm, params["dec_norm"], x)
 
 
@@ -177,6 +178,7 @@ def prefill_encdec(cfg, params, frames, tokens, *, max_seq=None, remat="full", m
                           remat)
     for i, blk in enumerate(params["dec_blocks"]):
         x, (k, v), (ck, cv) = block(blk, x, enc_h)
+        x = pctx.constrain(x)
         cache["k"][i, :, :S] = k.to(cache["k"].dtype)
         cache["v"][i, :, :S] = v.to(cache["v"].dtype)
         cache["cross_k"][i] = ck.to(cache["cross_k"].dtype)
@@ -195,6 +197,7 @@ def decode_encdec(cfg, params, cache, tokens, *, mode=None):
         x, _ = _dec_block(blk, x, cfg, (cache["cross_k"][i], cache["cross_v"][i]),
                           positions=positions, kv=(cache["k"][i], cache["v"][i]),
                           cache_index=idx, mode=mode)
+        x = pctx.constrain(x, "residual_dec")
     cache["idx"] = idx + 1
     x = layers.apply_norm(cfg.norm, params["dec_norm"], x)
     return unembed(cfg, params, x), cache

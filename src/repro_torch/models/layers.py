@@ -2,7 +2,8 @@
 
 Parameters are plain nested dicts of tensors; every layer is a pair of a seeded
 ``*_init(gen, ...) -> params`` (``gen`` is a ``torch.Generator`` living on the
-device the parameters are made on) and a pure apply function. Compute follows
+device the parameters are made on, or ``SHAPE_ONLY`` for tensors on the meta
+device: shapes and dtypes, nothing drawn) and a pure apply function. Compute follows
 ``cfg.compute_dtype`` (bf16 by default) with fp32 norms.
 """
 from __future__ import annotations
@@ -20,8 +21,20 @@ def to_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
+class ShapeOnly:
+    """Stands where a ``torch.Generator`` would for a build on the meta device
+    (no generator lives there): ``truncated_normal`` then draws nothing, and
+    every ``*_init`` gives meta tensors of the seeded build's shapes and dtypes."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import ctx as pctx
 
 
 def moe_init(gen: torch.Generator, cfg):
@@ -43,11 +44,18 @@ def _route(p, x2d, cfg):
 
 
 def aux_load_balance_loss(probs, idx, num_experts):
-    """Switch-style load-balance loss (mean fraction * mean prob * E)."""
+    """Switch-style load-balance loss (mean fraction * mean prob * E).
+
+    Inside ``parallel.ctx.data_parallel`` the reference's global batch is the
+    data ranks' rows together: the expert counts are summed over the ranks,
+    and this rank's term holds its own probabilities' share of the global
+    mean, so the ranks' terms add up to the global loss."""
     counts = torch.bincount(idx.reshape(-1), minlength=num_experts).float()
-    frac = counts / max(idx.numel(), 1)
-    mean_prob = probs.mean(dim=0)
-    return num_experts * torch.sum(frac * mean_prob)
+    n_ranks = pctx.data_size()
+    if n_ranks == 1:
+        return num_experts * torch.sum(counts / max(idx.numel(), 1) * probs.mean(dim=0))
+    frac = pctx.data_sum(counts) / (idx.numel() * n_ranks)
+    return num_experts * torch.sum(frac * probs.sum(dim=0) / (probs.shape[0] * n_ranks))
 
 
 def _expert_ffn(p, xin, cfg, dt):
@@ -62,7 +70,11 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     """x: (B, S, d) -> (y, aux_loss). One-hot grouped dispatch.
 
     The B * S tokens are cut into groups of ``min(group_size, B * S)``; a token
-    count that is not a whole number of groups raises ``ValueError``.
+    count that is not a whole number of groups raises ``ValueError``. Inside
+    ``parallel.ctx.data_parallel`` the reference groups the global batch's
+    tokens: a rank whose rows hold fewer than ``group_size`` tokens would form
+    other groups (a group of the reference's spans ranks), and raises
+    ``ValueError`` (ROADMAP C27).
     """
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -72,6 +84,10 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     if T % g:
         raise ValueError(f"moe einsum dispatch: {T} tokens (B={B} x S={S}) do not "
                          f"split into groups of {g}")
+    if T < group_size and pctx.data_size() > 1:
+        raise ValueError(f"moe einsum dispatch: a data rank's {T} tokens are fewer than "
+                         f"a group of {group_size}; the global batch's groups would span "
+                         "ranks")
     n_grp = T // g
     x2 = x.reshape(T, d)
     w, idx, probs = _route(p, x2, cfg)
@@ -95,14 +111,22 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     disp = slot.sum(dim=2)                                      # (n,g,E,cap)
     comb = (slot * wg_[..., None, None].to(dt)).sum(dim=2)
 
-    xin = torch.einsum("ngec,ngd->necd", disp, xg.to(dt))       # (n,E,cap,d)
-    yout = _expert_ffn(p, xin, cfg, dt)                         # (n,E,cap,d)
+    xin = pctx.constrain(torch.einsum("ngec,ngd->necd", disp, xg.to(dt)),
+                         "moe_tokens")                          # (n,E,cap,d)
+    yout = pctx.constrain(_expert_ffn(p, xin, cfg, dt), "moe_tokens")
     y = torch.einsum("ngec,necd->ngd", comb, yout)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
 def moe_apply_scatter(p, x, cfg):
-    """Dispatch without one-hot FLOPs: ``index_add`` into capacity buffers."""
+    """Dispatch without one-hot FLOPs: ``index_add`` into capacity buffers.
+
+    All B * S tokens are one group, so inside ``parallel.ctx.data_parallel``
+    (where the reference's group is the global batch's tokens) it raises
+    ``ValueError`` over more than one data rank (ROADMAP C27)."""
+    if pctx.data_size() > 1:
+        raise ValueError("moe scatter dispatch: one group of the global batch's tokens "
+                         "spans the data ranks; use the einsum dispatch")
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dt = layers.to_dtype(cfg.compute_dtype)

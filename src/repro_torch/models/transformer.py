@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import tree
 from repro_torch.models import attention, layers, mamba, moe, rwkv
+from repro_torch.parallel import ctx as pctx
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 # keys whose subtree cast_params keeps fp32: the norms (apply_norm multiplies in
@@ -304,6 +305,7 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
         kvs = [] if collect_kv else None
         for blk in params["blocks"]:
             x, st = layer(blk, x, st0)
+            x = pctx.constrain(x)
             if collect_kv:
                 kvs.append(st)
     else:
@@ -313,6 +315,7 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
         kvs = [] if collect_kv else None
         for blk in params["blocks"]:
             x, kv, a = block(blk, x)
+            x = pctx.constrain(x)
             aux = aux + a
             if collect_kv:
                 kvs.append(kv)
@@ -333,15 +336,17 @@ def _hybrid_stack(cfg, params, x, positions, *, attn_fn, remat, mode):
         states = []
         for blk in blks:
             h, st = inner(blk, h)
+            h = pctx.constrain(h)
             states.append(st)
         h, kv, _ = _block_apply(shared, h, cfg, positions=positions, attn_fn=attn_fn,
                                 mode=mode)
-        return h, states, kv
+        return pctx.constrain(h), states, kv
 
     layer, gbody = _checkpointed(mlayer, remat), _checkpointed(group, remat)
     pro_states, groups = [], []
     for blk in params["prologue"]:
         x, st = layer(blk, x)
+        x = pctx.constrain(x)
         pro_states.append(st)
     for blks in params["groups"]:
         x, states, kv = gbody(blks, x)
@@ -398,23 +403,28 @@ def decode_lm(cfg, params, cache, tokens, *, moe_impl: str = "einsum", mode=None
         states = cache["prologue"]
         for i, blk in enumerate(params["prologue"]):
             x, states[i] = _mamba_layer_apply(blk, x, cfg, state=states[i])
+            x = pctx.constrain(x, "residual_dec")
         for g, blks in enumerate(params["groups"]):
             states = cache["groups"][g]
             for i, blk in enumerate(blks):
                 x, states[i] = _mamba_layer_apply(blk, x, cfg, state=states[i])
+                x = pctx.constrain(x, "residual_dec")
             x, _, _ = _block_apply(params["shared_attn"], x, cfg, positions=positions,
                                    kv=(cache["attn_k"][g], cache["attn_v"][g]),
                                    cache_index=idx, mode=mode)
+            x = pctx.constrain(x, "residual_dec")
     elif cfg.family == "ssm":
         x = layers.apply_norm("layernorm", params["ln0"], x)
         states = cache["layers"]
         for i, blk in enumerate(params["blocks"]):
             x, states[i] = _rwkv_layer_apply(blk, x, states[i], cfg=cfg)
+            x = pctx.constrain(x, "residual_dec")
     else:
         for i, blk in enumerate(params["blocks"]):
             x, _, _ = _block_apply(blk, x, cfg, positions=positions,
                                    kv=(cache["k"][i], cache["v"][i]),
                                    cache_index=idx, mode=mode, moe_impl=moe_impl)
+            x = pctx.constrain(x, "residual_dec")
     cache["idx"] = idx + 1
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return unembed(cfg, params, x), cache

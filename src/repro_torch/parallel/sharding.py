@@ -1,0 +1,306 @@
+"""Sharding rules: parameter, optimizer-state, batch and cache partitioning,
+held exactly to the JAX package's rules.
+
+Strategy (the reference's):
+  * ``model`` axis = tensor parallel (heads, d_ff, vocab, experts-or-ff);
+  * ``data`` (+ ``pod`` when present) = batch DP **and** FSDP-style sharding
+    of parameters and optimizer state;
+  * MoE expert weights choose EP (experts over 'model') when E divides the
+    axis, else TP within experts;
+  * KV caches shard heads over 'model'; long-context (batch 1) caches shard
+    the *sequence* over 'data'.
+
+A spec is the reference's ``PartitionSpec`` written as a plain tuple, so it
+compares equal to ``tuple(P(...))``: one entry a tensor dim, each ``None``, an
+axis name or a tuple of axis names. ``placements`` turns one into ``DTensor``
+placements on a ``DeviceMesh`` (the reference's ``NamedSharding``).
+
+The port's tree differs from the reference's, and the rules follow it. The
+reference stacks each layer's leaves along leading dims (``blocks``,
+``prologue``, ``enc_blocks``, ``dec_blocks`` on one, hybrid ``groups`` on two);
+the port keeps lists of per-layer dicts (``transformer.JAX_STACKED_DIMS``). The
+path a rule sees is the reference's path with the list positions left out, and
+a leaf inside a layer list gets the reference's spec without the leading
+``None`` of each stacking dim.
+
+The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
+dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
+a mesh too large to build, as the planning tests use).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch import tree
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    if isinstance(mesh, DeviceMesh):
+        if mesh.mesh_dim_names is None:
+            raise ValueError("the sharding rules need a DeviceMesh with named dims")
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} in mesh order."""
+    if isinstance(mesh, DeviceMesh):
+        return {n: mesh.size(i) for i, n in enumerate(axis_names(mesh))}
+    return {a: mesh.shape[a] for a in mesh.axis_names}
+
+
+def is_spec(x) -> bool:
+    """The leaves of a spec or placements tree: plain tuples (a tree's own
+    sequences are lists, dicts or NamedTuples). Hand it to ``tree``'s
+    ``is_leaf``."""
+    return type(x) is tuple
+
+
+def fsdp_axes(mesh):
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
+
+
+def fsdp_size(mesh) -> int:
+    """The product of the fsdp axes' sizes: the data ranks a batch splits over."""
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in fsdp_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def _rule(path: str, ndim: int, cfg, moe_sharding: str) -> Tuple:
+    """Spec for the unstacked (per-layer) leaf."""
+    f = "F"   # placeholder: fsdp axes
+    t = "model"
+
+    def last(name):
+        return path.endswith(name) or path.endswith(name + "/w")
+
+    # --- MoE expert tensors (E, d, ff) / (E, ff, d)
+    if "/moe/" in path:
+        if last("router"):
+            return (f, None)
+        ep = moe_sharding == "ep"
+        if last("wg") or last("wu"):
+            return (t, f, None) if ep else (None, f, t)
+        if last("wd"):
+            return (t, None, f) if ep else (None, t, f)
+
+    # --- attention projections
+    if re.search(r"/(attn|xattn)/w[qkv]/w$", path):
+        return (f, t)
+    if re.search(r"/(attn|xattn)/w[qkv]/b$", path):
+        return (t,)
+    if re.search(r"/(attn|xattn)/wo/w$", path):
+        return (t, f)
+    if re.search(r"/(attn|xattn)/wo/b$", path):
+        return (None,)
+
+    # --- dense mlp
+    if re.search(r"/mlp/w[gu]/w$", path):
+        return (f, t)
+    if re.search(r"/mlp/w[gu]/b$", path):
+        return (t,)
+    if re.search(r"/mlp/wd/w$", path):
+        return (t, f)
+    if re.search(r"/mlp/wd/b$", path):
+        return (None,)
+
+    # --- mamba
+    if "/mamba/" in path:
+        if last("in_proj"):
+            return (f, t)
+        if last("out_proj"):
+            return (t, f)
+        if path.endswith("conv_w"):
+            return (None, t)
+        if path.endswith(("conv_b",)):
+            return (t,)
+        if path.endswith(("A_log", "D", "dt_bias")):
+            return (None,)
+        if "/norm/" in path:
+            return (t,)
+
+    # --- rwkv
+    if "/tmix/" in path or "/cmix/" in path:
+        if re.search(r"/w[rkvg]/w$", path) or last("wk") or last("wr"):
+            return (f, t)
+        if re.search(r"/(wo|wv)/w$", path):
+            return (t, f)
+        if path.endswith("maa_w1") or path.endswith("decay_w1"):
+            return (f, None)
+        if path.endswith("maa_w2"):
+            return (None, None, f)
+        if path.endswith("decay_w2"):
+            return (None, f)
+        if path.endswith("u"):
+            return (t, None)
+        if path.endswith("decay"):
+            return (f,)
+        if "/ln_x/" in path:
+            return (t,)
+        return tuple(None for _ in range(ndim))
+
+    # --- embeddings / unembed
+    if path.endswith("emb/table"):
+        return (t, f)
+    if path.endswith("unembed/w"):
+        return (f, t)
+    if path.endswith("unembed/b"):
+        return (t,)
+    if path.endswith("pos_dec"):
+        return (None, f)
+
+    # norms and anything residual-dim shaped: replicate
+    return tuple(None for _ in range(ndim))
+
+
+def _materialize(spec_tuple, mesh) -> Tuple:
+    fa = fsdp_axes(mesh)
+    out = []
+    for s in spec_tuple:
+        if s == "F":
+            out.append(fa if len(fa) > 1 else fa[0])
+        else:
+            out.append(s)
+    return tuple(out)
+
+
+def sanitize_spec(spec, shape, mesh) -> Tuple:
+    """Drop sharding on dims whose size doesn't divide the axis product
+    (e.g. odd vocabularies, KV-head counts below the TP degree)."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for i, s in enumerate(spec):
+        if s is None:
+            out.append(None)
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        out.append(s if shape[i] % prod == 0 else None)
+    return tuple(out)
+
+
+def param_specs(cfg, params_shape, mesh, *, moe_sharding: str = "auto"):
+    """Spec tree matching ``params_shape`` (tensors, meta tensors or anything
+    with a ``.shape``); its leaves are tuples (``is_spec``)."""
+    if moe_sharding == "auto":
+        msize = axis_sizes(mesh)["model"]
+        moe_sharding = "ep" if (cfg.num_experts and
+                                cfg.num_experts % msize == 0) else "tp"
+
+    def spec(path_elems, leaf):
+        # a list position is a layer of a stack the reference keeps as leading dims
+        path = "/".join(str(p) for p in path_elems if not isinstance(p, int))
+        ndim = len(leaf.shape)
+        base = tuple(_rule(path, ndim, cfg, moe_sharding))
+        if len(base) != ndim:   # fallback: replicate
+            base = (None,) * ndim
+        return sanitize_spec(_materialize(base, mesh), leaf.shape, mesh)
+
+    return tree.rebuild(params_shape, [spec(p, leaf) for p, leaf in
+                                       tree.leaves_with_paths(params_shape)])
+
+
+def placements(spec, mesh) -> Tuple:
+    """``DTensor`` placements of ``spec`` on ``mesh``: each mesh dim is
+    ``Shard(i)`` for the tensor dim ``i`` whose entry names it, else
+    ``Replicate()``. An entry naming several axes shards its dim over each of
+    them; a ``DTensor`` splits a dim over its mesh dims in mesh order, so the
+    entry must list them in that order (as ``fsdp_axes`` does)."""
+    names = axis_names(mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"spec {spec} names axes {unknown} the mesh {names} lacks")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: entry {entry} is not in the mesh's axis "
+                             f"order {names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec} shards over axis {names[i]!r} twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def param_shardings(cfg, params_shape, mesh, **kw):
+    """Placements tree matching ``params_shape`` (``placements`` of each
+    ``param_specs`` leaf on ``mesh``)."""
+    specs = param_specs(cfg, params_shape, mesh, **kw)
+    return tree.map_leaves(lambda s: placements(s, mesh), specs, is_leaf=is_spec)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache / activation specs
+# ---------------------------------------------------------------------------
+
+def batch_spec(mesh) -> Tuple:
+    return (fsdp_axes(mesh) if len(fsdp_axes(mesh)) > 1 else fsdp_axes(mesh)[0],)
+
+
+def data_specs(cfg, shape_kind: str, mesh, *, batch: int):
+    """Specs for the input batch dict."""
+    dp = fsdp_axes(mesh)
+    dp = dp if len(dp) > 1 else dp[0]
+    b = (dp, None)
+    specs = {"tokens": b}
+    if shape_kind == "train":
+        specs["labels"] = b
+    if cfg.family == "vlm":
+        specs["embeds"] = (dp, None, None)
+    if cfg.family == "encdec":
+        specs["frames"] = (dp, None, None)
+    return specs
+
+
+def cache_specs(cfg, mesh, *, batch: int, seq_shard: bool = False):
+    """Specs for decode caches, in the port's cache tree. seq_shard=True -> SP
+    layout for batch=1 long-context: KV sequence over 'data', heads over
+    'model'. When KV heads don't divide the TP degree, the cache *sequence*
+    shards over 'model' instead.
+
+    The K/V stacks ``(L, B, S, H, D)`` keep the reference's specs; the per-layer
+    state lists (ssm ``layers``, hybrid ``prologue`` and ``groups``) hold one
+    spec dict a layer, without the reference's stacking dims. ``idx`` is a host
+    int here, so it has no spec."""
+    dp = fsdp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    seq_ax, batch_ax = (dpa, None) if seq_shard else (None, dpa)
+    heads_divisible = cfg.num_kv_heads % axis_sizes(mesh)["model"] == 0
+    if heads_divisible:
+        kv = (None, batch_ax, seq_ax, "model", None)   # (L,B,S,H,D)
+    elif seq_shard:
+        kv = (None, batch_ax, (dpa, "model") if not isinstance(dpa, tuple)
+              else tuple(dpa) + ("model",), None, None)
+    else:
+        kv = (None, batch_ax, "model", None, None)     # seq over model
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {"k": kv, "v": kv}
+    if cfg.family == "ssm":
+        return {"layers": [{"S": (batch_ax, "model", None, None),
+                            "x_att": (batch_ax, None),
+                            "x_cmix": (batch_ax, None)}
+                           for _ in range(cfg.num_layers)]}
+    if cfg.family == "hybrid":
+        def st():
+            return {"conv": (batch_ax, None, "model"),
+                    "ssm": (batch_ax, "model", None, None)}
+        return {"prologue": [st() for _ in range(cfg.hybrid_prologue)],
+                "groups": [[st() for _ in range(cfg.hybrid_mamba_per_group)]
+                           for _ in range(cfg.hybrid_groups)],
+                "attn_k": kv, "attn_v": kv}
+    if cfg.family == "encdec":
+        return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv}
+    raise ValueError(cfg.family)

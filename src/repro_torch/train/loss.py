@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import ctx as pctx
+
 
 def _mm_f32(a, b):
     """a @ b of bf16 operands with fp32 products, sums and result."""
@@ -32,6 +34,13 @@ class _LogitsMatmul(torch.autograd.Function):
     logits rounded to bf16, as the source reads, the step-1 gradients miss the
     reference's by more than the 1e-4 that ``tests/test_torch_train.py`` holds
     them to.
+
+    Inside ``parallel.ctx.data_parallel`` the gradient of ``w`` is summed over
+    the data ranks in fp32 before it is rounded, and only data rank 0 passes it
+    on (the sharded step adds the ranks' gradients): the global batch's
+    gradient is rounded once, as on one device. Rounded on each rank, the
+    partial sums put a sharded run ~2^-9 of a partial away from the
+    single-device run (ROADMAP C26).
     """
 
     @staticmethod
@@ -39,6 +48,7 @@ class _LogitsMatmul(torch.autograd.Function):
         hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(hb, wb)
         ctx.dtypes = (h.dtype, w.dtype)
+        ctx.mesh = pctx.data_mesh()
         return _mm_f32(hb, wb)
 
     @staticmethod
@@ -46,8 +56,14 @@ class _LogitsMatmul(torch.autograd.Function):
         hb, wb = ctx.saved_tensors
         gb = grad.to(torch.bfloat16)
         dh = _mm_f32(gb, wb.T).to(ctx.dtypes[0]) if ctx.needs_input_grad[0] else None
-        dw = (_mm_f32(hb.T, gb).to(torch.bfloat16).to(ctx.dtypes[1])
-              if ctx.needs_input_grad[1] else None)
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(hb.T, gb)
+            if ctx.mesh is not None:
+                dw = pctx.data_sum(dw, ctx.mesh)
+                if pctx.data_index(ctx.mesh):
+                    dw.zero_()
+            dw = dw.to(torch.bfloat16).to(ctx.dtypes[1])
         return dh, dw
 
 
@@ -65,6 +81,8 @@ def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
     """hidden: (B,S,d); w_unembed: (d,V); labels: (B,S) integers.
 
     Returns (mean_nll over non-ignored, total_weight), both fp32 0-d tensors.
+    Inside ``parallel.ctx.data_parallel`` the weight is the global batch's (the
+    data ranks' summed), so the ranks' losses add up to the global mean.
     """
     B, S, d = hidden.shape
     T = B * S
@@ -86,4 +104,5 @@ def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
             nll, w = _chunk_nll(*args)
         loss_sum = loss_sum + nll
         w_sum = w_sum + w
+    w_sum = pctx.data_sum(w_sum)
     return loss_sum / torch.clamp(w_sum, min=1.0), w_sum

@@ -19,6 +19,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
 from repro_torch.models.transformer import JAX_STACKED_DIMS
@@ -81,9 +83,35 @@ def global_norm(grads):
     """sqrt of the sum of squares of every leaf, summed in fp64 and returned in
     fp32: torch's fp32 norm on the CPU drifts by ~1e-4 on a leaf of millions of
     elements (a whisper model's ``pos_dec``), where the reference's fp32 sum
-    does not."""
-    norms = torch._foreach_norm(tree.leaves(grads), 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    does not.
+
+    ``DTensor`` leaves (one mesh) give their full tensors' norm: each rank sums
+    its shards' squares, each divided by the number of ranks that hold a copy
+    of it, and one all-reduce a mesh dim adds the ranks' sums (DTensor's own
+    norm would reduce each leaf on its own)."""
+    gs = tree.leaves(grads)
+    norms = torch._foreach_norm([_local(g) for g in gs], 2, dtype=torch.float64)
+    sq = torch.stack([n * n / _copies(g) for n, g in zip(norms, gs)]).sum()
+    if isinstance(gs[0], DTensor):
+        mesh = gs[0].device_mesh
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(sq, group=mesh.get_group(i))
+    return torch.sqrt(sq).float()
+
+
+def _copies(t) -> int:
+    """How many ranks hold each element of a ``DTensor`` (1 for a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return 1
+    return math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                     if p.is_replicate())
+
+
+def _local(t):
+    """A ``DTensor``'s shard on this rank (a view: updates land in the
+    ``DTensor``), a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _decay_mask(path) -> bool:
@@ -103,12 +131,18 @@ def reference_ndim(path, p) -> int:
 def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     """AdamW step. ``grads`` has the structure of ``params``; its fp32 tensors
     are used as scratch and overwritten. Updates ``params``, ``state.m`` and
-    ``state.v`` in place and returns (params, new_state, metrics)."""
+    ``state.v`` in place and returns (params, new_state, metrics).
+
+    The leaves may be ``DTensor``s, a parameter's gradient and moments placed
+    as it is (the sharded step): the norm is then the full gradients' and each
+    rank updates its shards, the update being elementwise."""
     named = tree.leaves_with_paths(params)
-    ps = [p for _, p in named]
     gs = [g.float() for g in tree.leaves(grads)]
-    ms, vs = tree.leaves(state.m), tree.leaves(state.v)
     gnorm = global_norm(gs)
+    ps = [_local(p) for _, p in named]
+    gs = [_local(g) for g in gs]
+    ms = [_local(m) for m in tree.leaves(state.m)]
+    vs = [_local(v) for v in tree.leaves(state.v)]
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule_lr(cfg, step)

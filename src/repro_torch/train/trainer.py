@@ -1,5 +1,5 @@
 """Train step factory: microbatched gradient accumulation, remat, MoE aux loss
-and a gradient compression hook, on one device.
+and a gradient compression hook, on one device or sharded over a mesh.
 
 ``make_train_step(cfg, run)`` returns a function
     train_step(state, batch) -> (state, metrics)
@@ -9,11 +9,22 @@ compute type inside the loss. The step updates the state's tensors in place
 (see ``optimizer.apply_updates``) and returns the state. Metrics are 0-d
 tensors: reading one waits for the card.
 
-The reference's ``grad_specs`` (the gradient accumulator's sharding) has no
-counterpart: one card has nothing to shard. Every family of the registry is
-ported (an encdec batch carries its ``frames``); ``init_state`` and
-``make_loss_fn`` raise ``NotImplementedError`` for a family the port has no
-model of.
+``make_train_step(cfg, run, mesh=mesh)`` is the sharded step, the counterpart
+of the reference's GSPMD step with ``grad_specs``. Parameters and moments are
+``DTensor``s placed by ``parallel.sharding.param_specs`` (``shard_state``);
+the batch is ``DTensor``s sharded over the data axes (``shard_batch``). Each
+step gathers every parameter with ``full_tensor``, each rank runs the loss and
+the kernels on plain tensors over its own rows (inside
+``parallel.ctx.data_parallel``, so the loss's token count and the MoE
+load-balance statistics are the global batch's), and the gradient comes back
+summed over the data axes and reduce-scattered into the parameter's
+placements; the optimizer updates each rank's shards. Every model rank of a
+data row computes that row at full width: only the state at rest is sharded
+over ``model`` (ROADMAP C25).
+
+Every family of the registry is ported (an encdec batch carries its
+``frames``); ``init_state`` and ``make_loss_fn`` raise ``NotImplementedError``
+for a family the port has no model of.
 """
 from __future__ import annotations
 
@@ -21,10 +32,13 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
 
 from repro_torch import tree
 from repro_torch.models import api, layers
 from repro_torch.models.attention import knob_attention
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy
 
@@ -105,15 +119,90 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
     return loss_fn
 
 
-def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None):
+def shard_state(cfg, state: TrainState, mesh) -> TrainState:
+    """``state`` with its parameters and moments as ``DTensor``s placed by
+    ``param_specs`` on ``mesh`` (each rank keeps its shards of the full tensors
+    it holds: no communication). The step count stays a plain tensor."""
+    if state.ef_error is not None:
+        raise NotImplementedError("grad_compress='int8' has no sharded step")
+    specs = tree.leaves(shd.param_specs(cfg, state.params, mesh), is_leaf=shd.is_spec)
+
+    def place(t, requires_grad):
+        return tree.rebuild(t, [
+            distribute_tensor(x.detach(), mesh, shd.placements(s, mesh),
+                              src_data_rank=None).requires_grad_(requires_grad)
+            for x, s in zip(tree.leaves(t), specs)])
+
+    o = state.opt_state
+    return TrainState(place(state.params, True),
+                      o._replace(m=place(o.m, False), v=place(o.v, False)), None)
+
+
+def shard_batch(batch, mesh, microbatches: int = 1):
+    """The global ``batch`` (every rank holds all of it) as ``DTensor``s
+    sharded by ``batch_spec`` over the data axes. With microbatches, the rows
+    are first ordered so that microbatch i of every rank holds its share of
+    the global batch's microbatch i (rows i·b to (i+1)·b), as the
+    single-device step splits it."""
+    pl = shd.placements(shd.batch_spec(mesh), mesh)
+    n_data = shd.fsdp_size(mesh)
+
+    def place(x):
+        if x.shape[0] % (n_data * microbatches):
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split into "
+                             f"{microbatches} microbatch(es) over {n_data} data rank(s)")
+        if microbatches > 1:
+            x = x.reshape((microbatches, n_data, -1) + x.shape[1:]).transpose(0, 1)
+            x = x.reshape((-1,) + x.shape[3:])
+        return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+    return {k: place(v) for k, v in batch.items()}
+
+
+def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
+    """One optimizer step; sharded over ``mesh`` when one is given (see the
+    module's docstring)."""
     loss_fn = make_loss_fn(cfg, run, mode=mode)
+    gather = None
+    if mesh is not None:
+        if run.grad_compress != "none":
+            raise NotImplementedError(f"grad_compress={run.grad_compress!r} has no "
+                                      "sharded step")
+        fsdp = shd.fsdp_axes(mesh)
+        # each data rank's loss is its share of the global loss (the ranks' terms
+        # add up to it); every model rank of a data row computes the same
+        grad_pl = tuple(Partial("sum") if a in fsdp else Replicate()
+                        for a in shd.axis_names(mesh))
+        batch_pl = shd.placements(shd.batch_spec(mesh), mesh)
+
+        def gather(p):
+            return p.full_tensor(grad_placements=grad_pl)
 
     def grads_of(params, mb):
-        total, metrics = loss_fn(params, mb)
-        return torch.autograd.grad(total, tree.leaves(params), allow_unused=True,
+        leaves = tree.leaves(params)
+        full = leaves if gather is None else [gather(p) for p in leaves]
+        total, metrics = loss_fn(tree.rebuild(params, full), mb)
+        return torch.autograd.grad(total, leaves, allow_unused=True,
                                    materialize_grads=True), metrics
 
+    def local_rows(batch):
+        for k, v in batch.items():
+            if not isinstance(v, DTensor) or tuple(v.placements) != batch_pl:
+                raise ValueError(f"batch[{k!r}]: the sharded step takes DTensors placed "
+                                 f"{batch_pl} (shard_batch), not {type(v).__name__} "
+                                 f"{getattr(v, 'placements', '')}")
+        return {k: v.to_local() for k, v in batch.items()}
+
     def train_step(state: TrainState, batch):
+        if mesh is None:
+            return step(state, batch)
+        with pctx.data_parallel(mesh):
+            state, metrics = step(state, local_rows(batch))
+            for k in ("loss", "aux"):
+                metrics[k] = pctx.data_sum(metrics[k])
+        return state, metrics
+
+    def step(state: TrainState, batch):
         params = state.params
         n_mb = run.microbatches
 
@@ -122,8 +211,7 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None):
         else:
             b = next(iter(batch.values())).shape[0] // n_mb
             gdt = layers.to_dtype(run.grad_dtype)
-            grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
-                     for p in tree.leaves(params)]
+            grads = [torch.zeros_like(p, dtype=gdt) for p in tree.leaves(params)]
             ms = []
             for i in range(n_mb):
                 g, m = grads_of(params, {k: v[i * b:(i + 1) * b] for k, v in batch.items()})

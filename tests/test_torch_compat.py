@@ -118,7 +118,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.obs.counters", "repro_torch.faults.watchdog",
                 "repro_torch.tree", "repro_torch.train.loss", "repro_torch.train.optimizer",
                 "repro_torch.train.trainer", "repro_torch.data.synthetic",
-                "repro_torch.ckpt.manager", "repro_torch.launch.train"}
+                "repro_torch.ckpt.manager", "repro_torch.launch.train",
+                "repro_torch.parallel.ctx", "repro_torch.parallel.sharding",
+                "repro_torch.launch.mesh", "repro_torch.launch.specs"}
         missing = need - set(names)
         assert not missing, missing
         bad = [m for m in sys.modules

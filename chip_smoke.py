@@ -114,6 +114,21 @@ Phases, each printing one JSON line:
            the same forward-kernel launches a step (2 x 16) on both routes;
            step ms and peak memory of both; the card's total_memory against
            launch/specs.py's HBM_BUDGET
+  cost     the eager cost counter (utils/cost.py) against the card: four steps
+           at full width, each counted twice, once as it runs on the card and
+           once on meta tensors of the same shapes (api.init(cfg,
+           device="meta")): a qwen2.5-3b prefill of 512 tokens, a qwen2.5-3b
+           decode step at 4 slots (cache_len 520), an olmo-1b training step at
+           the train phase's batch, and one olmo-1b step through a (1, 1) mesh
+           (the parallel phase's sharded trainer; its meta count on a "fake"
+           group of one). Asserts the FLOPs and bytes of the two counts equal,
+           the kernel records equal the launch counters' deltas, and each
+           roofline bound max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s)
+           (launch/roofline.py) at most BOUND_OVER_BUSY times the step's busy
+           device time (the profiler's kernel durations, summed); prints per
+           step the bound, busy and wall ms, bound / busy, the useful-FLOP
+           share and the top 5 ops by bytes, and the host µs of the kernels'
+           cost hook with no counter open (hook_us)
   profile  (only when named in --phases) one prefill and four decode steps of
            the full model under torch.profiler: wall time, device-busy time,
            idle share and the kernels that take most of the device time
@@ -156,6 +171,7 @@ from repro_torch.core.sm90.tracegen import simulate_sm90      # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import flash_attention as fa         # noqa: E402
 from repro_torch.kernels import flash_decode as fd            # noqa: E402
+from repro_torch.launch import roofline                       # noqa: E402
 from repro_torch.launch import specs                          # noqa: E402
 from repro_torch.launch import train as launch_train          # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
@@ -166,6 +182,8 @@ from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
 from repro_torch.data.synthetic import DataIterator, token_batch  # noqa: E402
 from repro_torch.train import optimizer as opt                # noqa: E402
 from repro_torch.train import trainer                         # noqa: E402
+from repro_torch.utils import cost                            # noqa: E402
+from repro_torch.utils.cost import CostCounter                # noqa: E402
 
 # published peaks of one H100 SXM (dense): operations per second by input type,
 # and bytes per second of device memory
@@ -256,12 +274,35 @@ SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
 WHISPER_DEC = dict(B=4, H=20, Hkv=20, S_max=1500, D=64, clen=1500, layers=32)  # cross
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
+COST = dict(arch="qwen2.5-3b", prompt_len=512, slots=4, clen=520, max_seq=1024)
+BOUND_OVER_BUSY = 1.05  # a roofline bound above the card's own busy time means a count or a
+                        # constant is wrong; 5 % for the profiler's own spread
 PLAN_SHORTLIST = 3      # autotune_decode's candidates timed beside the split rule
 PICK_WITHIN = 0.05      # a pick within 5 % of the measured best counts as agreeing
 
 
+# profiler readings that stood on a window short of kernel records (see
+# device_profile and kernel_ms): the call site that took each, the records the
+# window held and the whole count it stood for; emit() adds those taken since
+# its last line to the next line it prints, as "extrapolated"
+EXTRAPOLATED = []
+
+
 def emit(obj):
+    if EXTRAPOLATED:
+        obj = {**obj, "extrapolated": list(EXTRAPOLATED)}
+        EXTRAPOLATED.clear()
     print(json.dumps(obj), flush=True)
+
+
+def note_extrapolated(held, whole):
+    """Records a reading taken from a window of ``held`` kernel records that
+    stands for ``whole``, under the first caller outside the profiling helpers."""
+    f = sys._getframe(1)
+    while f.f_code.co_name in ("note_extrapolated", "device_profile", "device_ms", "kernel_ms"):
+        f = f.f_back
+    EXTRAPOLATED.append({"at": f"{f.f_code.co_name}:{f.f_lineno}", "records": held,
+                         "of": whole, "lost": whole - held})
 
 
 def sm_clock():
@@ -335,27 +376,41 @@ def _profile_window(fn, iters):
     return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
 
 
-def device_profile(fn, iters=20, warmup=3, attempts=3, calls=1):
+def device_profile(fn, iters=20, warmup=3, attempts=8, calls=1):
     """Device time of one call of ``fn`` and the device kernels that each of the
     ``calls`` wrapper calls inside ``fn`` launches: the durations of the kernels
     of ``iters`` calls of ``fn`` (torch.profiler), summed, over ``iters``, and
     their count over ``iters * calls``. Gaps between kernels do not count, so
     the host's enqueue rate cannot hide the kernels' own time. The profiler has
     been seen to return a window with kernel records missing: a window whose
-    kernel count is not a whole multiple of ``iters * calls`` is taken again."""
+    kernel count is not a whole multiple of ``iters * calls`` is taken again,
+    up to ``attempts`` windows (one run lost records in four windows in a row,
+    holding 0 to 10 of 20; each incomplete window is logged to stderr). A
+    record was seen lost in every window of a run (SDPA's fp32 kernel at
+    whisper's shapes, 19 of 20): then the last window stands while it lacks at
+    most a tenth of the next whole multiple, its mean kernel time taken for
+    the lost ones, as ``kernel_ms`` takes it, and the reading is marked
+    "extrapolated" on the next JSON line (``note_extrapolated``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    want = iters * calls
     for _ in range(attempts):
         busy, launched, rows = _profile_window(fn, iters)
-        if launched and launched % (iters * calls) == 0:
-            return busy / iters, launched // (iters * calls)
+        if launched and launched % want == 0:
+            return busy / iters, launched // want
+        print(f"profiler window: {launched} kernel records for {iters} x {calls} calls: "
+              f"{[(n, name[:50]) for _, n, name in rows]}", file=sys.stderr, flush=True)
+    whole = launched + (-launched % want)
+    if launched and whole - launched <= 0.1 * whole:
+        note_extrapolated(launched, whole)
+        return busy / launched * whole / iters, whole // want
     raise AssertionError(f"the profiler recorded no whole window of {iters} x {calls} "
                          f"calls in {attempts} attempts; the last held {launched} kernels: "
                          f"{[(n, name[:60]) for _, n, name in rows]}")
 
 
-def kernel_ms(fn, calls=1, iters=20, warmup=3, attempts=3):
+def kernel_ms(fn, calls=1, iters=20, warmup=3, attempts=8):
     """Device time of one kernel of ``fn``, whose ``calls`` wrapper calls each
     launch one kernel: the summed durations of the profiled kernels over their
     count. A window may lose a kernel record (the <128, 3> forward lost one in
@@ -368,12 +423,16 @@ def kernel_ms(fn, calls=1, iters=20, warmup=3, attempts=3):
     for _ in range(attempts):
         busy, launched, rows = _profile_window(fn, iters)
         if want * 0.9 <= launched <= want:
+            if launched < want:
+                note_extrapolated(launched, want)
             return busy / launched
+        print(f"profiler window: {launched} of {want} kernel records", file=sys.stderr,
+              flush=True)
     raise AssertionError(f"the profiler recorded {launched} of {want} kernels in each of "
                          f"{attempts} windows: {[(n, name[:60]) for _, n, name in rows]}")
 
 
-def device_ms(fn, iters=20, warmup=3, attempts=3):
+def device_ms(fn, iters=20, warmup=3, attempts=8):
     """Device time of one call of ``fn`` (see ``device_profile``)."""
     return device_profile(fn, iters, warmup, attempts)[0]
 
@@ -2114,6 +2173,156 @@ def phase_parallel(kernels):
             kern["launches_parallel"] = counts["flash_fwd"]
 
 
+def counted(fn):
+    """(counter, forward launches, decode launches) of one call of ``fn`` under
+    the cost counter."""
+    n_fa, n_fd = fa.launches, fd.launches
+    with CostCounter() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c, fa.launches - n_fa, fd.launches - n_fd
+
+
+def cost_row(name, arch, kind, tokens, card_fn, meta_count):
+    """One step counted on the card, profiled, and held to its count on meta
+    (``meta_count``, what ``counted`` gave for the same step on meta tensors)
+    and to its roofline bound."""
+    card_fn()                                         # warm-up, not counted
+    torch.cuda.synchronize()
+    card, n_fa, n_fd = counted(card_fn)
+    prof = profiled(card_fn, top=5)
+    meta, m_fa, m_fd = meta_count
+    bound_s = {"operations": card.flops / roofline.PEAK_FLOPS,
+               "bytes": card.bytes / roofline.HBM_BW}
+    bound_by = max(bound_s, key=bound_s.get)
+    bound_ms = bound_s[bound_by] * 1e3
+    busy = prof["device_busy_ms"]
+    row = {"step": name, "model": arch, "flops": card.flops, "flops_meta": meta.flops,
+           "bytes": card.bytes, "bytes_meta": meta.bytes, "instr_count": card.instr_count,
+           "kernel_records": dict(card.kernels), "kernel_records_meta": dict(meta.kernels),
+           "launches": {"flash_fwd": n_fa, "flash_decode": n_fd},
+           "bound_ms": bound_ms, "bound_by": bound_by, "busy_ms": busy,
+           "wall_ms": prof["wall_ms"], "bound_over_busy": bound_ms / busy,
+           "device_idle_share": prof["device_idle_share"],
+           "useful_flops_ratio": roofline.model_flops_total(arch, kind, tokens) / card.flops,
+           "top_bytes": [{"bytes": b, "op": op, "shape": shape, "calls": n}
+                         for b, op, shape, n in card.top_bytes(5)],
+           "top_kernels": prof["top_kernels"]}
+    emit({"phase": "cost", **row})
+    if card.flops != meta.flops or card.bytes != meta.bytes:
+        raise AssertionError(f"cost {name}: the card's count ({card.flops} FLOPs, {card.bytes} "
+                             f"bytes) is not the meta count ({meta.flops}, {meta.bytes})")
+    want = {"flash_attention": n_fa, "flash_decode": n_fd}
+    got = {k: card.kernels.get(k, 0) for k in want}
+    if got != want or {k: meta.kernels.get(k, 0) for k in want} != got or m_fa or m_fd:
+        raise AssertionError(f"cost {name}: kernel records {dict(card.kernels)} on the card, "
+                             f"{dict(meta.kernels)} on meta; launches {want} on the card, "
+                             f"{m_fa} / {m_fd} on meta")
+    if bound_ms > BOUND_OVER_BUSY * busy:
+        raise AssertionError(f"cost {name}: the roofline bound {bound_ms:.3f} ms ({bound_by}) "
+                             f"is above {BOUND_OVER_BUSY} x the busy time {busy:.3f} ms")
+    return row
+
+
+def hook_us(n=200_000):
+    """Host µs of the kernels' cost hook with no counter open: one
+    ``cost.kernel`` region opened and left as the forward's wrapper opens it
+    (the loop's own time included)."""
+    q = torch.empty((1, 16, 512, 128), dtype=torch.bfloat16, device=DEV)
+    k = torch.empty((1, 2, 512, 128), dtype=torch.bfloat16, device=DEV)
+    t = time.perf_counter()
+    for _ in range(n):
+        with cost.kernel("flash_attention", fa._fwd_counts, q, k, k):
+            pass
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def meta_like(batch):
+    """Empty meta tensors of the batch's shapes, types and strides."""
+    return {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+
+
+def phase_cost(smi):
+    """The eager cost counter on the card: four full-width steps, counted on the
+    card and on meta, against their busy time."""
+    rows = []
+    no_counter_us = hook_us()
+    cfg = registry.get(COST["arch"])
+    params = api.cast_params(cfg, api.init(cfg, 0, device=DEV))
+    mparams = api.cast_params(cfg, api.init(cfg, device="meta"))
+    L, B = COST["prompt_len"], COST["slots"]
+    toks = torch.randint(0, cfg.vocab_size, (1, L), dtype=torch.int32, device=DEV)
+    prefill = make_prefill_step(cfg, max_seq=COST["max_seq"])
+    rows.append(cost_row(
+        "prefill", COST["arch"], "prefill", L, lambda: prefill(params, {"tokens": toks}),
+        counted(lambda: prefill(mparams, meta_like({"tokens": toks})))))
+
+    serve = make_serve_step(cfg)
+    caches = {d: api.init_cache(cfg, B, COST["max_seq"], device=d) for d in (DEV, "meta")}
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32, device=DEV)
+
+    def decode(p, dev, t):
+        caches[dev]["idx"] = COST["clen"] - 1          # one new token: cache_len clen
+        return serve(p, caches[dev], t)
+
+    rows.append(cost_row(
+        "decode", COST["arch"], "decode", B, lambda: decode(params, DEV, tok),
+        counted(lambda: decode(mparams, "meta", meta_like({"t": tok})["t"]))))
+    del params, mparams, caches, prefill, serve
+    torch.cuda.empty_cache()
+
+    tcfg = registry.get(TRAIN["arch"])
+    run = trainer.RunConfig(remat="full", microbatches=1,
+                            opt=opt.OptConfig(lr=3e-4, warmup_steps=2))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in
+             next(DataIterator(tcfg, batch=TRAIN["batch"], seq=TRAIN["seq"])).items()}
+    step = trainer.make_train_step(tcfg, run)
+    state = trainer.init_state(tcfg, run, 0, device=DEV)
+    mstate = trainer.init_state(tcfg, run, 0, device="meta")
+    rows.append(cost_row("train", TRAIN["arch"], "train", tokens, lambda: step(state, batch),
+                         counted(lambda: step(mstate, meta_like(batch)))))
+    del state, mstate, step
+    torch.cuda.empty_cache()
+
+    # the (1, 1) mesh: the meta count on a fake group of one, then the card's on NCCL
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        mstate = trainer.shard_state(tcfg, trainer.init_state(tcfg, run, 0, device="meta"), mesh)
+        mstep = trainer.make_train_step(tcfg, run, mesh=mesh)
+        mbatch = trainer.shard_batch(meta_like(batch), mesh)
+        meta_count = counted(lambda: mstep(mstate, mbatch))
+    finally:
+        dist.destroy_process_group()
+    del mstate, mstep, mbatch
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cost_", dir=root)
+    dist.init_process_group("nccl", init_method=f"file://{work}/store", rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        state = trainer.shard_state(tcfg, trainer.init_state(tcfg, run, 0, device=DEV), mesh)
+        sstep = trainer.make_train_step(tcfg, run, mesh=mesh)
+        sbatch = trainer.shard_batch(batch, mesh)
+        rows.append(cost_row("train_mesh_1x1", TRAIN["arch"], "train", tokens,
+                             lambda: sstep(state, sbatch), meta_count))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    del state, sstep, sbatch
+    torch.cuda.empty_cache()
+    emit({"phase": "cost", "card": smi, "peak_flops": roofline.PEAK_FLOPS,
+          "hbm_bw": roofline.HBM_BW, "bound_over_busy_limit": BOUND_OVER_BUSY,
+          "hook_us_no_counter": no_counter_us,
+          "steps": {r["step"]: {k: r[k] for k in ("bound_ms", "bound_by", "busy_ms", "wall_ms",
+                                                  "bound_over_busy", "useful_flops_ratio")}
+                    for r in rows}})
+
+
 def profiled(fn, top=12, watch=()):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
@@ -2175,7 +2384,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,sim,plan,serve,path,path_f32,moe,hybrid,"
-                            "encdec,ssm,train,parallel")
+                            "encdec,ssm,train,parallel,cost")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -2212,12 +2421,14 @@ def main(argv=None):
         phase_train(kernels)
     if "parallel" in phases:
         phase_parallel(kernels)
+    if "cost" in phases:
+        phase_cost(smi)
     if "profile" in phases:
         phase_profile()
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "plan", "serve", "path",
                                          "path_f32", "moe", "hybrid", "encdec", "ssm", "train",
-                                         "parallel"))
+                                         "parallel", "cost"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,13 @@ are ``STAGES_SM90``. Any other value, or a ``stages`` with fp32 tensors, raises
 the CPU too. The ring's depth changes no arithmetic: the plain version checks
 it and computes as ever.
 
+A meta tensor takes neither: the wrapper returns an empty meta output and
+launches nothing (the backward likewise returns empty gradients). While a
+``utils.cost.CostCounter`` is active, a call records one kernel
+(``forward_flops``: the reference's count of ``flash_ref``) and the backward
+one ``flash_attention_bwd`` of twice those FLOPs (the four products of the two
+einsums' gradients); nothing beneath either is counted again.
+
 A CPU tensor takes ``flash_attention_plain``. ``launches_sm90`` and
 ``launches_f32`` count the launches of each kernel, ``launches`` their sum;
 nothing else moves them.
@@ -59,6 +66,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import tma_addressable as _tma_addressable
+from repro_torch.utils import cost
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_K = 128
@@ -175,6 +183,28 @@ def _check(q, k, v):
             raise ValueError("q, k and v must lie on one device")
 
 
+def forward_flops(q, k) -> int:
+    """The forward's FLOPs as the reference counts its jnp counterpart
+    (``flash_ref``): the full ``L x S`` products over S padded to whole
+    chunks of ``min(512, S)``, no masked block skipped."""
+    B, H, L, D = q.shape
+    S = k.shape[2]
+    chunk = min(512, S)
+    return 4 * B * H * L * (-(-S // chunk) * chunk) * D
+
+
+def _fwd_counts(q, k, v):
+    """The forward's record: q, k and v read, o (q's size) written."""
+    return forward_flops(q, k), sum(map(cost.nbytes, (q, k, v, q)))
+
+
+def _bwd_counts(q, k, v, grad_o):
+    """The backward's record: the four products of the two einsums'
+    gradients, counted once; q, k, v and grad_o read, their gradients
+    written."""
+    return 2 * forward_flops(q, k), sum(map(cost.nbytes, (q, k, v, grad_o, q, k, v)))
+
+
 def flash_attention(q, k, v, *, causal: bool = True, stages=None):
     """q: (B, H, L, D); k/v: (B, Hkv, S, D) -> (B, H, L, D), strides kept."""
     global launches, launches_sm90, launches_f32
@@ -183,11 +213,14 @@ def flash_attention(q, k, v, *, causal: bool = True, stages=None):
         raise ValueError("the causal mask has no query offset: it needs L == S, "
                          f"got L={q.shape[2]}, S={k.shape[2]}")
     check_stages(stages, q.shape[3], q.dtype)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention has no kernel for {q.device}")
-    o = _launch(q, k, v, causal, stages)
+    with cost.kernel("flash_attention", _fwd_counts, q, k, v):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal)
+        if q.device.type == "meta":           # shapes only: nothing to launch
+            return torch.empty_like(q)
+        if q.device.type != "cuda":
+            raise RuntimeError(f"flash_attention has no kernel for {q.device}")
+        o = _launch(q, k, v, causal, stages)
     if q.dtype == torch.bfloat16:
         launches_sm90 += 1
     else:
@@ -245,10 +278,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, grad_o):
         q, k, v = ctx.saved_tensors
         want = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(w) for t, w in zip((q, k, v), want)]
-            o = flash_attention_plain(*ins, causal=ctx.causal,
-                                      pv_bf16=q.dtype == torch.bfloat16 and q.is_cuda)
-            got = iter(torch.autograd.grad(o, [t for t, w in zip(ins, want) if w],
-                                           grad_o))
+        with cost.kernel("flash_attention_bwd", _bwd_counts, q, k, v, grad_o):
+            if q.device.type == "meta":       # shapes only, laid out as autograd's
+                return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) if w
+                             else None for t, w in zip((q, k, v), want)) + (None, None)
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(w) for t, w in zip((q, k, v), want)]
+                o = flash_attention_plain(*ins, causal=ctx.causal,
+                                          pv_bf16=q.dtype == torch.bfloat16 and q.is_cuda)
+                got = iter(torch.autograd.grad(o, [t for t, w in zip(ins, want) if w],
+                                               grad_o))
         return tuple(next(got) if w else None for w in want) + (None, None)

@@ -45,6 +45,11 @@ refuse it. With an explicit ``n_split`` the plain version computes each
 split's ``(acc, m, l)`` over the kernels' balanced runs of 16-row tiles and
 merges them by log-sum-exp, so the CPU sees the split arithmetic.
 
+A meta tensor takes neither: the wrapper returns empty meta outputs of the
+kernels' shapes and launches nothing. While a ``utils.cost.CostCounter`` is
+active, a call records one kernel, counted as the reference counts
+``decode_attend`` (``_counts``).
+
 A CPU tensor takes ``flash_decode_plain``. ``launches_sm90`` and
 ``launches_f32`` count the launches of each route, ``launches`` their sum;
 nothing else moves them.
@@ -59,6 +64,7 @@ import struct
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils import cost
 
 NEG_INF = -1e30
 TARGET_BLOCKS = 264     # two blocks for each of the 132 SMs
@@ -236,6 +242,28 @@ def _launch(name, kind, q, k_cache, v_cache, clen, return_partials, stream, n_sp
     return res
 
 
+def _counts(q, k_cache, cache_len, return_partials):
+    """(FLOPs, bytes) of one call as the reference counts ``decode_attend``:
+    both products over ``cache_len`` rows, and the bytes of q, of those rows of
+    K and V, and of the output."""
+    B, H, D = q.shape
+    Hkv = k_cache.shape[1]
+    clen = min(int(cache_len), k_cache.shape[2])
+    rows = 2 * B * Hkv * clen * D * k_cache.element_size()
+    out = B * H * (D + 2) * 4 if return_partials else q.numel() * q.element_size()
+    return 4 * B * H * clen * D, q.numel() * q.element_size() + rows + out
+
+
+def _meta_outputs(q, return_partials):
+    """Empty meta tensors of the kernels' output shapes and types."""
+    B, H, D = q.shape
+    if return_partials:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (torch.empty((B, H, D), **f32), torch.empty((B, H), **f32),
+                torch.empty((B, H), **f32))
+    return torch.empty_like(q)
+
+
 def flash_decode(q, k_cache, v_cache, cache_len: int, *,
                  return_partials: bool = False, n_split=None):
     """q: (B, H, D); caches: (B, Hkv, S, D); cache_len: one host int.
@@ -246,19 +274,23 @@ def flash_decode(q, k_cache, v_cache, cache_len: int, *,
     """
     global launches, launches_sm90, launches_f32
     _check(q, k_cache, v_cache)
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, cache_len,
-                                  return_partials=return_partials, n_split=n_split)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_decode has no kernel for {q.device}")
-    clen = _clamp_len(cache_len, k_cache.shape[2])
-    check_n_split(n_split, clen)
-    sm90 = q.dtype == torch.bfloat16
-    with _build.on_device(q.device):
-        # the raw handle of the current stream, without a Stream object
-        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-        launch = _launch_sm90 if sm90 else _launch_f32
-        res = launch(q, k_cache, v_cache, clen, return_partials, stream, n_split)
+    with cost.kernel("flash_decode", _counts, q, k_cache, cache_len, return_partials):
+        if q.device.type == "cpu":
+            return flash_decode_plain(q, k_cache, v_cache, cache_len,
+                                      return_partials=return_partials, n_split=n_split)
+        if q.device.type == "meta":           # shapes only: nothing to launch
+            check_n_split(n_split, _clamp_len(cache_len, k_cache.shape[2]))
+            return _meta_outputs(q, return_partials)
+        if q.device.type != "cuda":
+            raise RuntimeError(f"flash_decode has no kernel for {q.device}")
+        clen = _clamp_len(cache_len, k_cache.shape[2])
+        check_n_split(n_split, clen)
+        sm90 = q.dtype == torch.bfloat16
+        with _build.on_device(q.device):
+            # the raw handle of the current stream, without a Stream object
+            stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+            launch = _launch_sm90 if sm90 else _launch_f32
+            res = launch(q, k_cache, v_cache, clen, return_partials, stream, n_split)
     if sm90:
         launches_sm90 += 1
     else:

@@ -10,6 +10,10 @@ The transposes below are views: the kernels take strides, so nothing is copied.
 parameters, passed through to the wrappers; ``None`` keeps each kernel's own
 default (see ``flash_attention`` and ``flash_decode``).
 
+A meta tensor (the dry-run's) launches nothing, and an active
+``utils.cost.CostCounter`` records each wrapper call as one kernel (see the
+wrappers); under ``mode="reference"`` it counts the plain version's own ops.
+
 With grad mode on and q, k or v requiring grad, ``mha_forward`` goes through
 ``flash_attention.FlashAttentionFn``: the same forward, and a backward (autograd
 of the plain version). Without grad (serving) it calls the wrapper directly.

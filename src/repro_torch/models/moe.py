@@ -50,7 +50,10 @@ def aux_load_balance_loss(probs, idx, num_experts):
     data ranks' rows together: the expert counts are summed over the ranks,
     and this rank's term holds its own probabilities' share of the global
     mean, so the ranks' terms add up to the global loss."""
-    counts = torch.bincount(idx.reshape(-1), minlength=num_experts).float()
+    flat = idx.reshape(-1)
+    # bincount's numbers with a static shape (bincount's size depends on the data)
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     n_ranks = pctx.data_size()
     if n_ranks == 1:
         return num_experts * torch.sum(counts / max(idx.numel(), 1) * probs.mean(dim=0))

@@ -16,10 +16,12 @@ from repro_torch.parallel import ctx as pctx
 
 
 def _mm_f32(a, b):
-    """a @ b of bf16 operands with fp32 products, sums and result."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    """a @ b of bf16 operands with fp32 products, sums and result. The CPU has
+    no kernel of ``torch.mm``'s ``out_dtype`` form, so it widens the operands
+    first (the same numbers); every other device (the card, meta) takes it."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 class _LogitsMatmul(torch.autograd.Function):

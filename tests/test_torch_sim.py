@@ -83,7 +83,8 @@ def test_no_tpu_model_and_nothing_uncopied():
     held = {p.relative_to(PORT).as_posix()
             for pkg in ("obs", "analysis", "faults", "core", "core/kprog", "utils", "data")
             for p in (PORT / pkg).glob("*.py")}
-    assert held == set(copied_modules()) | {"utils/__init__.py", "data/__init__.py"}
+    assert held == set(copied_modules()) | {"utils/__init__.py", "utils/cost.py",
+                                            "data/__init__.py"}
 
 
 def test_subsystem_breakdown_names_the_copys_layers():

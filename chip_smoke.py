@@ -2070,9 +2070,16 @@ def recorded_steps(make_step, log):
     return make
 
 
+# the readings of the sharded (1, 1) step on the full-gather route, before the
+# partitioned one (PERF.md, H100 80GB HBM3, 700 W),
+# printed beside this run's
+PARALLEL_GATHERED_ROUTE = {"steps_peak_memory_gb": 23.608, "device_busy_ms": 169.11}
+
+
 def phase_parallel(kernels):
     """Full-width olmo-1b through launch/train.py's sharded trainer on a (1, 1)
-    mesh, held to the unsharded trainer."""
+    mesh, held to the unsharded trainer bit for bit; olmo-1b's family takes the
+    partitioned route (trainer.route)."""
     total = torch.cuda.get_device_properties(0).total_memory
     if not specs.HBM_BUDGET < total:
         raise AssertionError(f"parallel: launch/specs.py's HBM_BUDGET {specs.HBM_BUDGET} is "
@@ -2154,14 +2161,21 @@ def phase_parallel(kernels):
                         "flash_fwd_launches_per_step": [x["launches"] for x in plain],
                         "steps_peak_memory_gb": max(x["peak_gb"] for x in plain),
                         "init_peak_memory_gb": init_peak["unsharded"]},
-          "profile_one_step": profile,
+          "profile_one_step": profile, "route": trainer.route(cfg),
+          "gathered_route_sharded": PARALLEL_GATHERED_ROUTE,
           "relative_difference": rel, "tolerance": PARALLEL_TOL, "launches": counts,
           "total_memory": total, "hbm_budget": specs.HBM_BUDGET})
     if rc != 0 or len(sharded) != n:
         raise AssertionError(f"parallel: launch/train.py returned {rc} after {len(sharded)} "
                              f"of {n} steps")
+    if trainer.route(cfg) != "partitioned":
+        raise AssertionError(f"parallel: {cfg.name}'s sharded step takes the "
+                             f"{trainer.route(cfg)!r} route, not the partitioned one")
     if any(x > PARALLEL_TOL for r in rel for x in r.values()):
         raise AssertionError(f"parallel: sharded against unsharded beyond {PARALLEL_TOL}: {rel}")
+    if any(a[k] != b[k] for a, b in zip(sharded, plain) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"parallel: the (1, 1) partitioned route is not the unsharded "
+                             f"trainer bit for bit: {rel}")
     want = [2 * L] * n
     got = [x["launches"] for x in sharded]
     if got != want or [x["launches"] for x in plain] != want or counts["flash_fwd"] != 2 * L * n:

@@ -16,8 +16,9 @@ group on a local file store, so one card runs the same code. The mesh is
 ``(dp, tp)`` over ``("data", "model")`` (``launch/mesh.py``): a group of another
 size raises ``MeshSizeError``. Parameters and AdamW moments are ``DTensor``s
 placed by ``parallel.sharding.param_specs``; each rank trains on its rows of
-the batch (``trainer.make_train_step(..., mesh=)``), every model rank of a data
-row at full width (ROADMAP C25). Only rank 0 prints and writes checkpoints;
+the batch (``trainer.make_train_step(..., mesh=)``): the dense, vlm and moe
+families partitioned over ``model`` (ROADMAP A1), the others with every model
+rank of a data row at full width (C25). Only rank 0 prints and writes checkpoints;
 every rank takes part in gathering them, and a checkpoint restores under
 another ``(dp, tp)``.
 
@@ -141,13 +142,22 @@ def _all_ranks_agree(flag: bool, device) -> bool:
 
 
 def main(argv=None):
+    """Trains; returns 0, or 17 after a SIGTERM's checkpoint. The SIGTERM
+    handler the run installs is taken down on every way out, the previous one
+    put back (the reference's launcher leaves its own installed): a process
+    that calls ``main`` and forks later, as a test worker running a sweep
+    does, must not hand the flag-only handler to its children (ROADMAP C31)."""
     args = build_parser().parse_args(argv)
     device = api.resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
-    with process_group(device):
-        return _train(args, device)
+    handler = signal.getsignal(signal.SIGTERM)
+    try:
+        with process_group(device):
+            return _train(args, device)
+    finally:
+        signal.signal(signal.SIGTERM, handler)
 
 
 def _train(args, device):
@@ -207,10 +217,23 @@ def _train(args, device):
             say("[preempt] checkpoint published; exiting")
             return 17
     ckpt.wait()
+    peak = _peak_gb(device)
     ckpt.save(args.steps, state, blocking=True)
     say(f"done: {args.steps} steps; {watchdog.slow_steps} straggler "
-        f"step(s); checkpoints in {args.ckpt_dir}")
+        f"step(s); checkpoints in {args.ckpt_dir}"
+        + (f"; peak memory {peak:.3f} GB a rank (the ranks' largest)" if peak else ""))
     return 0
+
+
+def _peak_gb(device):
+    """The largest ``torch.cuda.max_memory_allocated`` of the ranks, in GB
+    (``None`` on the CPU)."""
+    if device.type != "cuda":
+        return None
+    t = torch.tensor([torch.cuda.max_memory_allocated(device) / 1e9], device=device)
+    if dist.get_world_size() > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
 
 
 if __name__ == "__main__":

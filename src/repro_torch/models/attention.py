@@ -192,6 +192,28 @@ def cross_attend(q, k, v, *, attn_fn=None, mode=None):
     return ops.mha_forward(q, k, v, causal=False, mode=mode)
 
 
+def _kv_heads_of_q_heads(cfg, n_q: int, rank: int):
+    """For model rank ``rank``'s ``n_q`` q heads (its block of the model's), the
+    kv heads they map to (``h -> h // G``): ``(first, count, index)``, the
+    contiguous run of kv heads to project, and ``index`` the kv head of each
+    local q head within that run where the run's heads are not shared by
+    equal groups of consecutive q heads (else ``None``: local ``G`` is the
+    q heads over the run's kv heads)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    kv = [h // G for h in range(rank * n_q, (rank + 1) * n_q)]
+    first, count = kv[0], kv[-1] - kv[0] + 1
+    if n_q % count == 0 and all(kv[j] - first == j // (n_q // count) for j in range(n_q)):
+        return first, count, None
+    return first, count, [h - first for h in kv]
+
+
+def _kv_slice(p, first: int, count: int, hd: int):
+    """The columns of a gathered ``wk`` / ``wv`` leaf for kv heads
+    ``first .. first + count``."""
+    cols = slice(first * hd, (first + count) * hd)
+    return {k: (w[:, cols] if k == "w" else w[cols]) for k, w in p.items()}
+
+
 def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
                cross_kv=None, attn_fn=None, use_rope=True, causal=None, mode=None):
     """Returns (out, new_kv) where new_kv is (k, v) of this call's tokens.
@@ -203,21 +225,46 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     ``cross_attend``). ``causal`` (default ``cfg.causal``) masks the
     self-attention; ``attn_fn`` is called with it too. ``mode`` is handed to
     ``kernels.ops``.
+
+    Inside ``parallel.ctx.model_parallel``, where the layout splits the q
+    heads, ``wq`` holds this model rank's block of them
+    (``parallel.sharding.compute_layout``): the rank projects
+    (``layers.dense_split``) and runs the kernel on those heads and the kv
+    heads they map to, either its ``wk`` / ``wv`` shard (the layout splits
+    the kv heads too) or the columns of the whole leaves that it needs, and
+    ``wo`` is ``layers.dense_joined`` over the ranks' heads. The kernel's
+    ``h -> h // G`` map on the local heads is the model's on the global ones.
     """
     B, L, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lay = pctx.layout()
+    split = lay is not None and lay.heads
     dt = layers.to_dtype(cfg.compute_dtype)
     causal = cfg.causal if causal is None else causal
-    q = layers.dense(p["wq"], x, dtype=dt).reshape(B, L, H, hd)
+    proj, out_proj = layers.dense, layers.dense
+    wk, wv, index = p["wk"], p["wv"], None
+    if split:
+        proj, out_proj = layers.dense_split, layers.dense_joined
+        x = layers.split_input(x)
+        H //= pctx.model_size()
+        if lay.kv_heads:
+            Hkv //= pctx.model_size()
+        else:                                       # whole: this rank's kv heads
+            first, Hkv, index = _kv_heads_of_q_heads(cfg, H, pctx.model_index())
+            wk, wv = _kv_slice(wk, first, Hkv, hd), _kv_slice(wv, first, Hkv, hd)
+    q = proj(p["wq"], x, dtype=dt).reshape(B, L, H, hd)
     if cross_kv is not None:
         k, v = cross_kv
         if use_rope:
             q = layers.rope(q, positions, cfg.rope_theta)
         o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
-        return layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt), None
+        return out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt), None
 
-    k = layers.dense(p["wk"], x, dtype=dt).reshape(B, L, Hkv, hd)
-    v = layers.dense(p["wv"], x, dtype=dt).reshape(B, L, Hkv, hd)
+    k = proj(wk, x, dtype=dt).reshape(B, L, Hkv, hd)
+    v = proj(wv, x, dtype=dt).reshape(B, L, Hkv, hd)
+    if index is not None:                           # one kv head a q head
+        idx = torch.tensor(index, device=k.device)
+        k, v = k[:, :, idx], v[:, :, idx]
     if use_rope:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
@@ -228,12 +275,11 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         k_cache[:, idx:idx + L] = k.to(k_cache.dtype)
         v_cache[:, idx:idx + L] = v.to(v_cache.dtype)
         o = ops.decode_forward(q, k_cache, v_cache, idx + L, mode=mode)
-        out = layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
-        return out, (k_cache, v_cache)
+        return out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt), (k_cache, v_cache)
 
     if attn_fn is not None:
         o = attn_fn(q, k, v, causal=causal)
     else:
         o = ops.mha_forward(q, k, v, causal=causal, mode=mode)
-    out = layers.dense(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
+    out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
     return out, (pctx.constrain(k, "kv_collect"), pctx.constrain(v, "kv_collect"))

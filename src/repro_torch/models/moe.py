@@ -12,6 +12,17 @@ are batched matmuls over the expert dim. Routing is computed in fp32 from an
 fp32 router (``transformer.cast_params`` leaves it fp32). A token whose choice
 finds its expert's queue full is dropped for that choice (its slot is the extra
 column ``cap``, cut off before the experts run), as in the reference.
+
+Inside ``parallel.ctx.model_parallel`` the layout (``parallel.ctx.layout()``)
+says how the experts are split over ``model``: EP (``"ep"``), each rank
+holding ``E/tp`` whole experts; TP within the experts (``"tp"``), each rank
+holding every expert's share of ``d_ff`` for ``wg`` / ``wu`` and ``wd`` as
+``layers.dense_joined`` takes it; or not at all. The experts' outputs are
+joined over ``model``, so that the router, the load-balance loss and the
+combine run alike on every model rank, as on one device. The dispatched
+tokens' gradient is the ranks' fp32 partials summed and rounded once: under
+EP by ``_Dispatch`` (or, in the scatter dispatch, ``to_model`` on an fp32
+copy), under TP within the experts by ``layers.split_input``.
 """
 from __future__ import annotations
 
@@ -61,12 +72,54 @@ def aux_load_balance_loss(probs, idx, num_experts):
     return num_experts * torch.sum(frac * probs.sum(dim=0) / (probs.shape[0] * n_ranks))
 
 
+def _expert_mode() -> str:
+    """How the layout splits the experts over ``model``: "ep", "tp" or "none"
+    (also outside ``parallel.ctx.model_parallel``)."""
+    lay = pctx.layout()
+    return "none" if lay is None else lay.experts
+
+
 def _expert_ffn(p, xin, cfg, dt):
-    """xin: (..., E, C, d) -> (..., E, C, d) through each expert's gated MLP."""
+    """xin: (..., E, C, d) -> (..., E, C, d) through each expert's gated MLP.
+    Under EP ``p`` holds this rank's experts and ``xin`` their slots, and the
+    ranks' outputs are joined; under TP within the experts the products are
+    ``layers.split_mm`` and ``layers.joined_mm``."""
+    act = F.silu if cfg.mlp == "swiglu" else layers._gelu
+    mode = _expert_mode()
+    if mode == "tp":
+        xs = layers.split_input(xin)
+        h = act(layers.split_mm(xs, p["wg"].to(dt))) * layers.split_mm(xs, p["wu"].to(dt))
+        return layers.joined_mm(h, p["wd"].to(dt), join=pctx.layout().d_model)
     g = torch.einsum("...ecd,edf->...ecf", xin, p["wg"].to(dt))
     u = torch.einsum("...ecd,edf->...ecf", xin, p["wu"].to(dt))
-    act = F.silu(g) if cfg.mlp == "swiglu" else layers._gelu(g)
-    return torch.einsum("...ecf,efd->...ecd", act * u, p["wd"].to(dt))
+    y = torch.einsum("...ecf,efd->...ecd", act(g) * u, p["wd"].to(dt))
+    return pctx.gather_from_model(y, -3) if mode == "ep" else y
+
+
+class _Dispatch(torch.autograd.Function):
+    """The dispatch einsum of this model rank's experts' slots: the tokens'
+    gradient is the ranks' partials taken in fp32, summed and rounded once."""
+
+    @staticmethod
+    def forward(ctx, disp, xg, group):
+        ctx.save_for_backward(disp)
+        ctx.group, ctx.x_dtype = group, xg.dtype
+        return torch.einsum("ngec,ngd->necd", disp, xg)
+
+    @staticmethod
+    def backward(ctx, dxin):
+        disp, = ctx.saved_tensors
+        part = torch.einsum("ngec,necd->ngd", disp.float(), dxin.float())
+        return None, pctx.all_reduce_f32(part, ctx.group).to(ctx.x_dtype), None
+
+
+def _experts(cfg):
+    """The experts whose tokens this model rank computes: its own under EP,
+    all of them otherwise."""
+    if _expert_mode() != "ep":
+        return slice(0, cfg.num_experts)
+    n = cfg.num_experts // pctx.model_size()
+    return slice(pctx.model_index() * n, (pctx.model_index() + 1) * n)
 
 
 def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
@@ -114,8 +167,11 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     disp = slot.sum(dim=2)                                      # (n,g,E,cap)
     comb = (slot * wg_[..., None, None].to(dt)).sum(dim=2)
 
-    xin = pctx.constrain(torch.einsum("ngec,ngd->necd", disp, xg.to(dt)),
-                         "moe_tokens")                          # (n,E,cap,d)
+    if _expert_mode() == "ep":                       # this rank's experts
+        xin = _Dispatch.apply(disp[:, :, _experts(cfg)], xg.to(dt), pctx.model_group())
+    else:
+        xin = torch.einsum("ngec,ngd->necd", disp, xg.to(dt))
+    xin = pctx.constrain(xin, "moe_tokens")                     # (n,E,cap,d)
     yout = pctx.constrain(_expert_ffn(p, xin, cfg, dt), "moe_tokens")
     y = torch.einsum("ngec,necd->ngd", comb, yout)
     return y.reshape(B, S, d).to(x.dtype), aux
@@ -147,9 +203,12 @@ def moe_apply_scatter(p, x, cfg):
 
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     slot = flat_e * (cap + 1) + safe_pos
+    # under EP each rank's buffer holds its experts' tokens: the gradient's
+    # fp32 partials summed over the ranks
+    xt = pctx.to_model(x2.float()) if _expert_mode() == "ep" else x2
     buf = torch.zeros((E * (cap + 1), d), dtype=dt, device=x.device).index_add(
-        0, slot, x2[tok].to(dt)).reshape(E, cap + 1, d)
-    yout = _expert_ffn(p, buf[:, :cap][None], cfg, dt)[0]       # (E,cap,d)
+        0, slot, xt[tok].to(dt)).reshape(E, cap + 1, d)
+    yout = _expert_ffn(p, buf[_experts(cfg), :cap][None], cfg, dt)[0]  # (E,cap,d)
     yout = torch.cat([yout, torch.zeros((E, 1, d), dtype=dt, device=x.device)], dim=1)
     gathered = yout[flat_e, safe_pos]                           # (T*k, d)
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))

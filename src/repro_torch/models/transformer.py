@@ -275,7 +275,7 @@ def write_slot(cfg, cache, slot: int, one):
 
 def _embed_inputs(cfg, params, tokens, embeds):
     x = layers.embed(params["emb"], tokens, dtype=layers.to_dtype(cfg.compute_dtype))
-    if embeds is not None:  # precomputed prefix embeddings
+    if embeds is not None:  # precomputed prefix embeddings (replicated over model)
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
 

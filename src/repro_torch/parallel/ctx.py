@@ -15,6 +15,20 @@ computes over its own rows of the batch, and ``data_sum`` adds a statistic
 over the mesh's data axes, so that a quantity the reference computes over the
 global batch (the loss's token count, the MoE load-balance statistics) is
 global here too. Outside it ``data_sum`` is the identity and ``data_size`` 1.
+
+``model_parallel(mesh, layout)`` is the third. Each rank then holds its
+share of the leaves that ``layout`` (``sharding.model_layout``, read back with
+``layout()``) splits over ``model`` and computes the layers' products on it,
+each product column-parallel (``models.layers``'s ``dense_split`` and
+``dense_joined``). The operators here are what those products and the
+vocabulary-parallel lookup and loss are built from: ``model_group`` (``None``
+outside the scope or with one model rank, where ``layout()`` is ``None`` too
+and everything here is the identity and launches nothing),
+``model_size``, ``all_reduce_f32``, ``all_gather``, ``to_model`` (identity
+forward, the gradient summed over the ranks), ``from_model`` (the ranks' terms summed
+forward, the gradient passed through), ``gather_from_model`` (the ranks'
+blocks joined, the gradient of this rank's block passed back), ``model_max``
+and ``model_index``.
 """
 from __future__ import annotations
 
@@ -122,4 +136,132 @@ def data_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
     out = x.detach().clone()
     for a in axes:
         dist.all_reduce(out, group=mesh.get_group(a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+# process-wide for the same reason as _DATA_MESH: (mesh, layout)
+_MODEL = (None, None)
+
+
+@contextmanager
+def model_parallel(mesh, layout):
+    """Within the scope the model's products are partitioned over ``mesh``'s
+    ``model`` axis as ``layout`` (a ``sharding.ModelLayout``) says, each rank
+    computing on its shards of the leaves."""
+    global _MODEL
+    prev, _MODEL = _MODEL, (mesh, layout)
+    try:
+        yield
+    finally:
+        _MODEL = prev
+
+
+def model_group():
+    """The ``model`` axis's process group, or ``None`` outside a scope or with
+    one model rank."""
+    mesh = _MODEL[0]
+    if mesh is None or shd.axis_sizes(mesh)["model"] == 1:
+        return None
+    return mesh.get_group("model")
+
+
+def layout():
+    """The scope's ``sharding.ModelLayout``, or ``None`` where ``model_group``
+    is: the layers then compute every product whole."""
+    return None if model_group() is None else _MODEL[1]
+
+
+def model_size() -> int:
+    """The ``model`` axis's size (1 outside a scope)."""
+    mesh = _MODEL[0]
+    return 1 if mesh is None else shd.axis_sizes(mesh)["model"]
+
+
+def model_index() -> int:
+    """This rank's position on the ``model`` axis (its shard's block)."""
+    mesh = _MODEL[0]
+    return 0 if mesh is None else mesh.get_local_rank("model")
+
+
+def all_reduce_f32(x, group):
+    """``x`` summed over ``group`` in fp32 (a type below fp32 widened first),
+    as a new fp32 tensor."""
+    out = x.float() if x.dtype != torch.float32 else x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather(x, dim: int, group):
+    """The ranks' ``x`` joined along ``dim``, in rank order (no gradient)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_f32(grad, ctx.group).to(grad.dtype), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_f32(x, group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_model(x):
+    """Identity forward; the gradient summed over the model ranks. It goes
+    before a partitioned product whose input every model rank holds."""
+    group = model_group()
+    return x if group is None else _ToModel.apply(x, group)
+
+
+def from_model(x):
+    """``x`` summed over the model ranks (in fp32, rounded once to its type);
+    the gradient passed through."""
+    group = model_group()
+    return x if group is None else _FromModel.apply(x, group)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, rank = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(n, dim=ctx.dim)[rank].contiguous(), None, None
+
+
+def gather_from_model(x, dim: int):
+    """The model ranks' blocks of ``x`` joined along ``dim``, in rank order;
+    what follows must run alike on every rank, and the gradient of this rank's
+    block is passed back."""
+    group = model_group()
+    return x if group is None else _GatherFromModel.apply(x, dim, group)
+
+
+def model_max(x):
+    """``x``'s elementwise maximum over the model ranks, without gradient."""
+    group = model_group()
+    if group is None:
+        return x.detach()
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out

@@ -23,6 +23,41 @@ path a rule sees is the reference's path with the list positions left out, and
 a leaf inside a layer list gets the reference's spec without the leading
 ``None`` of each stacking dim.
 
+The placements at rest are the reference's; the layout the sharded train
+step **computes** in over ``model`` is the port's own choice, and
+``model_layout`` is its one owner: the trainer places each leaf by
+``compute_layout`` (which reads it) and the layers split their products as it
+says (``parallel.ctx.layout()``). GSPMD resolves the same situations with
+reshards of its own. tp is the ``model`` axis's size. Every partitioned
+product is column-parallel: each rank computes whole output columns, over the
+whole contraction, as one device does. The second product of a pair (``wo``,
+the MLP's and an expert's ``wd``) takes its input's blocks gathered over
+``model`` and its output columns (``d_model``) split, not its rows as at
+rest; the ranks' column blocks are then joined (``layers.dense_joined``). A
+sum of per-rank partial products in their place (Megatron's row-parallel
+product) would reassociate the residual stream, and C13's bf16 roundings in
+the loss turn that into gradient noise that moves Adam's steps on near-zero
+gradients past the 1e-5 parity with one device (ROADMAP C32).
+  * q heads: where ``H % tp == 0`` each rank computes its ``H/tp`` q heads
+    (``wq`` and its bias).
+  * kv heads: where also ``Hkv % tp == 0``, the kv heads its q heads map to
+    (``h -> h // G``), which are its ``wk`` / ``wv`` shard. Where
+    ``Hkv % tp != 0`` (a shard of ``wk`` would be a fraction of a kv head, or
+    split one head's columns), ``wk`` / ``wv`` and their biases are gathered
+    over ``model`` for compute, and each rank takes the kv heads its q heads
+    need; each rank's gradient of the gathered leaf is then a partial sum,
+    whatever the placements at rest.
+  * whole attention: where ``H % tp != 0`` (a ``wq`` shard is not a whole
+    number of heads), the four projections are gathered over ``model`` and
+    the attention runs alike on every model rank.
+  * ``d_ff``, the vocabulary, the experts (EP, where ``E % tp == 0``) or each
+    expert's ``d_ff`` (TP within the experts) are split where tp divides
+    them, else computed whole on every rank (minicpm's odd vocabulary
+    122753). The second product of a pair splits its output columns only
+    where tp divides ``d_model``; else every rank computes all of them.
+  * everything else (norms, the router, the residual) computes whole, alike
+    on every model rank.
+
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
 a mesh too large to build, as the planning tests use).
@@ -30,6 +65,7 @@ a mesh too large to build, as the planning tests use).
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 from torch.distributed.device_mesh import DeviceMesh
@@ -207,6 +243,71 @@ def param_specs(cfg, params_shape, mesh, *, moe_sharding: str = "auto"):
 
     return tree.rebuild(params_shape, [spec(p, leaf) for p, leaf in
                                        tree.leaves_with_paths(params_shape)])
+
+
+@dataclass(frozen=True)
+class ModelLayout:
+    """How the sharded train step splits a model's products over ``model``
+    (the module's docstring): each flag says whether tp divides that dim,
+    which each rank then computes its share of."""
+    heads: bool          # q heads
+    kv_heads: bool       # kv heads too
+    d_ff: bool           # the MLP's hidden units
+    d_model: bool        # the output columns of a pair's second product
+    vocab: bool
+    experts: str         # "ep", "tp" (each expert's d_ff) or "none"
+
+
+def model_layout(cfg, tp: int) -> ModelLayout:
+    """The compute layout of ``cfg`` over ``tp`` model ranks."""
+    heads = bool(cfg.num_heads) and cfg.num_heads % tp == 0
+    experts = "none"
+    if cfg.num_experts:
+        experts = ("ep" if cfg.num_experts % tp == 0
+                   else "tp" if cfg.d_ff % tp == 0 else "none")
+    return ModelLayout(heads=heads, kv_heads=heads and cfg.num_kv_heads % tp == 0,
+                       d_ff=cfg.d_ff % tp == 0, d_model=cfg.d_model % tp == 0,
+                       vocab=cfg.vocab_size % tp == 0, experts=experts)
+
+
+_COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|emb/table|unembed)"
+                           r"(?:/([wb]))?$")
+
+
+def _compute_leaf(lay: ModelLayout, path: str, ndim: int):
+    """(spec over ``model``, gradient kind) of one leaf (``compute_layout``)."""
+    m = _COMPUTE_LEAF.search(path)
+    name, wb = (m.group(1), m.group(2)) if m else ("", None)
+    split = {"attn/wq": lay.heads, "attn/wk": lay.kv_heads, "attn/wv": lay.kv_heads,
+             "attn/wo": lay.heads and lay.d_model and wb == "w",
+             "mlp/wg": lay.d_ff, "mlp/wu": lay.d_ff,
+             "mlp/wd": lay.d_ff and lay.d_model and wb == "w",
+             "moe/wg": lay.experts != "none", "moe/wu": lay.experts != "none",
+             "moe/wd": lay.experts == "ep" or (lay.experts == "tp" and lay.d_model),
+             "emb/table": lay.vocab, "unembed": lay.vocab}.get(name, False)
+    if not split:
+        # wk / wv whole under split q heads: each rank uses its q heads' kv heads
+        partial = name in ("attn/wk", "attn/wv") and lay.heads
+        return (None,) * ndim, "sum" if partial else "same"
+    # experts over EP and the embedding table by rows; the rest by columns
+    dim = 0 if (name.startswith("moe/") and lay.experts == "ep") or name == "emb/table" \
+        else ndim - 1
+    return tuple("model" if i == dim else None for i in range(ndim)), "shard"
+
+
+def compute_layout(cfg, params_shape, mesh):
+    """For each leaf of ``params_shape``, in leaf order, ``(spec, grad)``: the
+    spec over ``model`` alone that the sharded step computes the leaf in (its
+    data axes are gathered), from ``model_layout``, and how each model rank's
+    gradient of it relates to the leaf's: ``"shard"`` (its block), ``"sum"``
+    (a partial sum over the ranks) or ``"same"`` (the whole gradient, alike
+    on every rank)."""
+    lay = model_layout(cfg, axis_sizes(mesh)["model"])
+    out = []
+    for path_elems, leaf in tree.leaves_with_paths(params_shape):
+        path = "/".join(str(p) for p in path_elems if not isinstance(p, int))
+        out.append(_compute_leaf(lay, path, len(leaf.shape)))
+    return out
 
 
 def placements(spec, mesh) -> Tuple:

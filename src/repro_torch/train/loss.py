@@ -12,16 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import layers
 from repro_torch.parallel import ctx as pctx
-
-
-def _mm_f32(a, b):
-    """a @ b of bf16 operands with fp32 products, sums and result. The CPU has
-    no kernel of ``torch.mm``'s ``out_dtype`` form, so it widens the operands
-    first (the same numbers); every other device (the card, meta) takes it."""
-    if a.device.type == "cpu":
-        return a.float() @ b.float()
-    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 class _LogitsMatmul(torch.autograd.Function):
@@ -46,27 +38,32 @@ class _LogitsMatmul(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, h, w):
+    def forward(ctx, h, w, model_group=None):
         hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
         ctx.save_for_backward(hb, wb)
         ctx.dtypes = (h.dtype, w.dtype)
-        ctx.mesh = pctx.data_mesh()
-        return _mm_f32(hb, wb)
+        ctx.mesh, ctx.model_group = pctx.data_mesh(), model_group
+        return layers.mm_f32(hb, wb)
 
     @staticmethod
     def backward(ctx, grad):
         hb, wb = ctx.saved_tensors
         gb = grad.to(torch.bfloat16)
-        dh = _mm_f32(gb, wb.T).to(ctx.dtypes[0]) if ctx.needs_input_grad[0] else None
+        dh = None
+        if ctx.needs_input_grad[0]:
+            dh = layers.mm_f32(gb, wb.T)
+            if ctx.model_group is not None:       # w a vocabulary shard
+                dh = pctx.all_reduce_f32(dh, ctx.model_group)
+            dh = dh.to(ctx.dtypes[0])
         dw = None
         if ctx.needs_input_grad[1]:
-            dw = _mm_f32(hb.T, gb)
+            dw = layers.mm_f32(hb.T, gb)
             if ctx.mesh is not None:
                 dw = pctx.data_sum(dw, ctx.mesh)
                 if pctx.data_index(ctx.mesh):
                     dw.zero_()
             dw = dw.to(torch.bfloat16).to(ctx.dtypes[1])
-        return dh, dw
+        return dh, dw, None
 
 
 def _chunk_nll(hx, w_unembed, yx, ignore_index: int):
@@ -78,13 +75,34 @@ def _chunk_nll(hx, w_unembed, yx, ignore_index: int):
     return torch.sum((lse - gold) * valid), torch.sum(valid)
 
 
+def _chunk_nll_split(hx, w_unembed, yx, ignore_index: int):
+    """``_chunk_nll`` with ``w_unembed`` this model rank's share of the
+    vocabulary: the row max and the sum of exponentials are taken over the
+    model ranks, and the label's logit on the rank that holds its row. The
+    hidden state's gradient is the ranks' fp32 partials summed, rounded once."""
+    logits = _LogitsMatmul.apply(hx, w_unembed, pctx.model_group())
+    m = pctx.model_max(logits.amax(dim=-1))
+    lse = m + torch.log(pctx.from_model(torch.exp(logits - m[:, None]).sum(dim=-1)))
+    v_loc = w_unembed.shape[1]
+    local = yx.long() - pctx.model_index() * v_loc
+    own = (local >= 0) & (local < v_loc)
+    gold = torch.gather(logits, 1, torch.where(own, local, 0)[:, None])[:, 0]
+    gold = pctx.from_model(torch.where(own, gold, 0.0))
+    valid = (yx != ignore_index).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
 def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
                           ignore_index: int = -1):
     """hidden: (B,S,d); w_unembed: (d,V); labels: (B,S) integers.
 
     Returns (mean_nll over non-ignored, total_weight), both fp32 0-d tensors.
     Inside ``parallel.ctx.data_parallel`` the weight is the global batch's (the
-    data ranks' summed), so the ranks' losses add up to the global mean.
+    data ranks' summed), so the ranks' losses add up to the global mean. Where
+    the layout of ``parallel.ctx.model_parallel`` splits the vocabulary
+    (``w_unembed`` a ``model`` shard of its columns), the cross entropy is
+    vocabulary-parallel (``_chunk_nll_split``); ``_LogitsMatmul``'s roundings
+    hold per share.
     """
     B, S, d = hidden.shape
     T = B * S
@@ -98,12 +116,14 @@ def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
         y = F.pad(y, (0, pad), value=ignore_index)
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     w_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    lay = pctx.layout()
+    body = _chunk_nll_split if lay is not None and lay.vocab else _chunk_nll
     for c0 in range(0, n * chunk, chunk):
         args = (h[c0:c0 + chunk], w_unembed, y[c0:c0 + chunk], ignore_index)
         if torch.is_grad_enabled():
-            nll, w = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            nll, w = checkpoint(body, *args, use_reentrant=False)
         else:
-            nll, w = _chunk_nll(*args)
+            nll, w = body(*args)
         loss_sum = loss_sum + nll
         w_sum = w_sum + w
     w_sum = pctx.data_sum(w_sum)

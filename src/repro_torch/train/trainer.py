@@ -13,14 +13,27 @@ tensors: reading one waits for the card.
 of the reference's GSPMD step with ``grad_specs``. Parameters and moments are
 ``DTensor``s placed by ``parallel.sharding.param_specs`` (``shard_state``);
 the batch is ``DTensor``s sharded over the data axes (``shard_batch``). Each
-step gathers every parameter with ``full_tensor``, each rank runs the loss and
-the kernels on plain tensors over its own rows (inside
+rank runs the loss and the kernels on plain tensors over its own rows (inside
 ``parallel.ctx.data_parallel``, so the loss's token count and the MoE
 load-balance statistics are the global batch's), and the gradient comes back
 summed over the data axes and reduce-scattered into the parameter's
-placements; the optimizer updates each rank's shards. Every model rank of a
-data row computes that row at full width: only the state at rest is sharded
-over ``model`` (ROADMAP C25).
+placements; the optimizer updates each rank's shards. Two routes, by family
+(``route``):
+
+* ``"partitioned"`` (dense, vlm, moe: the families whose layers are
+  ``transformer._block_apply``): each parameter is gathered over the data
+  axes and placed over ``model`` as ``parallel.sharding.compute_layout``
+  says (a leaf the layout does not split, such as an attention leaf whose
+  shard would not fall on head boundaries, is gathered over ``model`` too).
+  The loss runs inside ``parallel.ctx.model_parallel`` with the same
+  ``sharding.model_layout``: heads, ``d_ff``, the vocabulary and the experts
+  (or each expert's ``d_ff``) are partitioned over ``model``, as the
+  reference's GSPMD step partitions them, in column-parallel products.
+* ``"gathered"`` (hybrid, ssm, encdec): every parameter is gathered with
+  ``full_tensor``, and every model rank of a data row computes that row at
+  full width: only the state at rest is sharded over ``model`` (ROADMAP
+  C25). Their rules shard fused projections whose columns are not heads
+  (Mamba2's ``in_proj`` concatenates z, x, B, C and dt).
 
 Every family of the registry is ported (an encdec batch carries its
 ``frames``); ``init_state`` and ``make_loss_fn`` raise ``NotImplementedError``
@@ -28,11 +41,13 @@ for a family the port has no model of.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from functools import partial
 from typing import NamedTuple, Optional, Union
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch import tree
 from repro_torch.models import api, layers
@@ -41,6 +56,14 @@ from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy
+
+
+PARTITIONED_FAMILIES = ("dense", "vlm", "moe")
+
+
+def route(cfg) -> str:
+    """The sharded step's route for ``cfg``'s family (the module's docstring)."""
+    return "partitioned" if cfg.family in PARTITIONED_FAMILIES else "gathered"
 
 
 @dataclass(frozen=True)
@@ -159,31 +182,58 @@ def shard_batch(batch, mesh, microbatches: int = 1):
     return {k: place(v) for k, v in batch.items()}
 
 
+def _partitioned_gather(cfg, params, mesh):
+    """The plain tensors the partitioned loss computes with, one a leaf of
+    ``params`` (DTensors): each leaf gathered over the data axes, in its
+    ``compute_layout`` over ``model``, its gradient coming back summed over
+    the data axes and, over ``model``, as the layout says."""
+    names, fsdp = shd.axis_names(mesh), shd.fsdp_axes(mesh)
+    out = []
+    for p, (spec, grad) in zip(tree.leaves(params), shd.compute_layout(cfg, params, mesh)):
+        model = next((Shard(i) for i, e in enumerate(spec) if e == "model"), Replicate())
+        model_grad = {"shard": model, "sum": Partial("sum"), "same": Replicate()}[grad]
+        compute = tuple(model if n == "model" else Replicate() for n in names)
+        grad_pl = tuple(Partial("sum") if n in fsdp else model_grad if n == "model"
+                        else Replicate() for n in names)
+        out.append(p.redistribute(mesh, compute).to_local(grad_placements=grad_pl))
+    return out
+
+
 def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
     """One optimizer step; sharded over ``mesh`` when one is given (see the
     module's docstring)."""
     loss_fn = make_loss_fn(cfg, run, mode=mode)
     gather = None
+    scope = contextlib.nullcontext
     if mesh is not None:
         if run.grad_compress != "none":
             raise NotImplementedError(f"grad_compress={run.grad_compress!r} has no "
                                       "sharded step")
         fsdp = shd.fsdp_axes(mesh)
-        # each data rank's loss is its share of the global loss (the ranks' terms
-        # add up to it); every model rank of a data row computes the same
-        grad_pl = tuple(Partial("sum") if a in fsdp else Replicate()
-                        for a in shd.axis_names(mesh))
         batch_pl = shd.placements(shd.batch_spec(mesh), mesh)
+        if route(cfg) == "partitioned":
+            scope = partial(pctx.model_parallel, mesh,
+                            shd.model_layout(cfg, shd.axis_sizes(mesh)["model"]))
 
-        def gather(p):
-            return p.full_tensor(grad_placements=grad_pl)
+            def gather(params, leaves):
+                return _partitioned_gather(cfg, params, mesh)
+        else:
+            # each data rank's loss is its share of the global loss (the ranks'
+            # terms add up to it); every model rank of a data row computes the same
+            grad_pl = tuple(Partial("sum") if a in fsdp else Replicate()
+                            for a in shd.axis_names(mesh))
+
+            def gather(params, leaves):
+                return [p.full_tensor(grad_placements=grad_pl) for p in leaves]
 
     def grads_of(params, mb):
         leaves = tree.leaves(params)
-        full = leaves if gather is None else [gather(p) for p in leaves]
-        total, metrics = loss_fn(tree.rebuild(params, full), mb)
-        return torch.autograd.grad(total, leaves, allow_unused=True,
-                                   materialize_grads=True), metrics
+        full = leaves if gather is None else gather(params, leaves)
+        # the backward's checkpointed recomputes run the model again: in the scope
+        with scope():
+            total, metrics = loss_fn(tree.rebuild(params, full), mb)
+            return torch.autograd.grad(total, leaves, allow_unused=True,
+                                       materialize_grads=True), metrics
 
     def local_rows(batch):
         for k, v in batch.items():

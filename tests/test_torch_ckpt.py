@@ -2,6 +2,7 @@
 launcher: torch ports of tests/test_ckpt_trainer.py's checkpoint tests and of
 tests/test_launchers.py::test_train_launcher, on the CPU."""
 import json
+import os
 import signal
 import subprocess
 import sys
@@ -283,6 +284,49 @@ def test_train_launcher_prediction_line():
     line = tlaunch.attention_prediction(cfg, 4, 512)
     assert line.startswith("SimFA-H800 attention prediction: ")
     assert "us/layer" in line and "-bound)" in line
+
+
+class _Iterator:
+    """The launcher's ``DataIterator``, which also records the SIGTERM handler
+    in force while the run takes its batches, and on its first batch sends the
+    process SIGTERM ("preempted") or raises ("raises")."""
+    seen = []
+
+    def __init__(self, how, *args, **kwargs):
+        self.how, self.it = how, DataIterator(*args, **kwargs)
+
+    def __next__(self):
+        _Iterator.seen.append(signal.getsignal(signal.SIGTERM))
+        if self.how == "raises":
+            raise RuntimeError("a batch failed")
+        if self.how == "preempted":
+            os.kill(os.getpid(), signal.SIGTERM)
+        return next(self.it)
+
+
+@pytest.mark.parametrize("how,rc", [("ok", 0), ("preempted", 17), ("raises", None)])
+def test_train_launcher_puts_the_sigterm_handler_back(how, rc, tmp_path, monkeypatch):
+    """``main`` installs a flag-only SIGTERM handler for its run and puts back
+    the one it found on every way out: return 0, return 17 after a SIGTERM,
+    and an exception (ROADMAP C31)."""
+    def before(*_):
+        raise AssertionError("the handler main found was called")
+
+    monkeypatch.setattr(tlaunch, "DataIterator", lambda *a, **k: _Iterator(how, *a, **k))
+    _Iterator.seen.clear()
+    old = signal.signal(signal.SIGTERM, before)
+    try:
+        argv = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
+                "--ckpt-dir", str(tmp_path / "ck")]
+        if rc is None:
+            with pytest.raises(RuntimeError, match="a batch failed"):
+                tlaunch.main(argv)
+        else:
+            assert tlaunch.main(argv) == rc
+        assert signal.getsignal(signal.SIGTERM) is before
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    assert _Iterator.seen and all(h not in (before, old) and callable(h) for h in _Iterator.seen)
 
 
 def test_train_launcher_refuses_what_the_port_lacks():

@@ -12,6 +12,7 @@ lines; and the import rule.
 import dataclasses
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 import textwrap
@@ -346,8 +347,12 @@ def test_launchers_print_the_simfa_h100_line(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "SimFA-H800" in out
     assert re.search(r"SimFA-H100 bf16 decode kernel plan: n_split \d+, [\d.]+ us", out)
-    ttrain.main(["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
-                 "--seq", "16", "--ckpt-dir", str(tmp_path / "ck")])
+    handler = signal.getsignal(signal.SIGTERM)       # the launcher installs its own
+    try:
+        ttrain.main(["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2",
+                     "--seq", "16", "--ckpt-dir", str(tmp_path / "ck")])
+    finally:
+        signal.signal(signal.SIGTERM, handler)
     out = capsys.readouterr().out
     assert re.search(r"SimFA-H100 bf16 forward kernel plan: stages \d, [\d.]+ us/layer", out)
 

@@ -113,7 +113,20 @@ Phases, each printing one JSON line:
            batches: losses and global gradient norms within 1e-5 relative,
            the same forward-kernel launches a step (2 x 16) on both routes;
            step ms and peak memory of both; the card's total_memory against
-           launch/specs.py's HBM_BUDGET
+           launch/specs.py's HBM_BUDGET. Then, in the same NCCL group, one
+           run a family through trainer.make_train_step(..., mesh=) on a
+           (1, 1) mesh at full width, bf16 compute, remat "full", 3 steps,
+           beside the unsharded trainer from the same seed and batches:
+           zamba2-7b with its depth cut to 1 + 2 x (2 Mamba2 layers + the
+           shared attention block), B 2 x 512; rwkv6-7b cut to 4 layers, B 2
+           x 512; whisper-large-v3 at full depth, B 2 x (1500 frames, 64
+           tokens: the forward kernel under autograd, non-causal at 1500 x
+           1500 and 64 x 1500). Each takes the partitioned route, its losses
+           and gradient norms equal the unsharded trainer's bit for bit, and
+           its forward-kernel launches a step are asserted on both routes
+           (2 a use of an attention: the forward and its recompute); each
+           prints its depth cut, route, losses, norms, step ms, the steps'
+           peak and one more sharded step under the profiler
   cost     the eager cost counter (utils/cost.py) against the card: four steps
            at full width, each counted twice, once as it runs on the card and
            once on meta tensors of the same shapes (api.init(cfg,
@@ -249,6 +262,17 @@ TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
 ]
 TRAIN_TOL = 1e-3       # step 1's loss and grad-norm, kernels against mode="reference", relative
 PARALLEL = dict(arch="olmo-1b", batch=4, seq=512, steps=3, remat="full")
+# the parallel phase's runs of the hybrid, ssm and encdec families at full width
+# through the sharded step on a (1, 1) mesh: their depth cut (config fields)
+# where the full depth's fp32 master, gradient and two moments (16 bytes a
+# parameter) would not fit one card: zamba2-7b's 5.6 B parameters need ~90 GB,
+# rwkv6-7b's 7.6 B ~122 GB; whisper-large-v3's 1.6 B (~26 GB) run at full depth
+PARALLEL_FAMILIES = [
+    dict(arch="zamba2-7b", batch=2, seq=512,
+         cut=dict(hybrid_prologue=1, hybrid_groups=2, hybrid_mamba_per_group=2, num_layers=7)),
+    dict(arch="rwkv6-7b", batch=2, seq=512, cut=dict(num_layers=4)),
+    dict(arch="whisper-large-v3", batch=2, seq=64, cut={}),
+]
 PARALLEL_TOL = 1e-5    # sharded (1, 1) mesh against the unsharded trainer: losses, grad norms
 WGRAD_TOL = 4e-2       # wq/wk/wv grads, kernels against the plain bf16-P route, relative in
                        # norm: twice the largest reading (1.92e-2, layer 0 wq)
@@ -2079,7 +2103,8 @@ PARALLEL_GATHERED_ROUTE = {"steps_peak_memory_gb": 23.608, "device_busy_ms": 169
 def phase_parallel(kernels):
     """Full-width olmo-1b through launch/train.py's sharded trainer on a (1, 1)
     mesh, held to the unsharded trainer bit for bit; olmo-1b's family takes the
-    partitioned route (trainer.route)."""
+    partitioned route (trainer.route). Then the hybrid, ssm and encdec
+    families through the sharded step (``parallel_family``)."""
     total = torch.cuda.get_device_properties(0).total_memory
     if not specs.HBM_BUDGET < total:
         raise AssertionError(f"parallel: launch/specs.py's HBM_BUDGET {specs.HBM_BUDGET} is "
@@ -2131,12 +2156,14 @@ def phase_parallel(kernels):
         step_fn = trainer.make_train_step(cfg, run, mesh=mesh)
         batch = trainer.shard_batch(batches[0], mesh)
         profile = {"sharded": profiled(lambda: step_fn(state, batch), watch=("nccl",))}
+        del state, step_fn, batch
+        torch.cuda.empty_cache()
+        family_launches = {spec["arch"]: parallel_family(spec, mesh, n)
+                           for spec in PARALLEL_FAMILIES}
     finally:
         trainer.make_train_step = make_step
         dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
-    del state, step_fn, batch
-    torch.cuda.empty_cache()
     state = trainer.init_state(cfg, run, 0, device=DEV)
     step_fn = trainer.make_train_step(cfg, run)
     profile["unsharded"] = profiled(lambda: step_fn(state, batches[0]), watch=("nccl",))
@@ -2185,6 +2212,97 @@ def phase_parallel(kernels):
     for kern in kernels:
         if kern["name"] == "flash_fwd":
             kern["launches_parallel"] = counts["flash_fwd"]
+            kern["launches_parallel_families"] = family_launches
+
+
+def attention_uses(cfg) -> int:
+    """The attention calls of one forward of ``cfg``'s model."""
+    if cfg.family == "hybrid":
+        return cfg.hybrid_groups
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    if cfg.family == "ssm":
+        return 0
+    return cfg.num_layers
+
+
+def layer_count(cfg) -> int:
+    if cfg.family == "hybrid":
+        return cfg.hybrid_prologue + cfg.hybrid_groups * (cfg.hybrid_mamba_per_group + 1)
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.dec_layers
+    return cfg.num_layers
+
+
+def parallel_family(spec, mesh, n):
+    """``spec``'s family through the sharded step on the (1, 1) ``mesh`` and
+    through the unsharded trainer, ``n`` steps each from the same seed and
+    batches; returns the run's line and its forward-kernel launches."""
+    full = registry.get(spec["arch"])
+    cfg = dataclasses.replace(full, **spec["cut"])
+    B, S = spec["batch"], spec["seq"]
+    run = trainer.RunConfig(remat=PARALLEL["remat"], microbatches=1, opt=opt.OptConfig(
+        lr=3e-4, warmup_steps=10, total_steps=n, schedule=cfg.lr_schedule))
+    data = DataIterator(cfg, batch=B, seq=S)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in next(data).items()}
+               for _ in range(n)]
+    logs, launches, n_params, profile = {"unsharded": [], "sharded": []}, 0, 0, None
+    for name, log in logs.items():
+        sharded = name == "sharded"
+        state = trainer.init_state(cfg, run, 0, device=DEV)
+        n_params = sum(p.numel() for p in tree.leaves(state.params))
+        if sharded:
+            state = trainer.shard_state(cfg, state, mesh)
+        step_fn = recorded_steps(trainer.make_train_step, log)(
+            cfg, run, **({"mesh": mesh} if sharded else {}))
+        reset_counts()
+        for batch in batches:
+            state, _ = step_fn(state, trainer.shard_batch(batch, mesh) if sharded else batch)
+        if sharded:
+            launches = read_counts()["flash_fwd"]
+            # two more steps, the second under the profiler: where a step's time goes
+            batch = trainer.shard_batch(batches[0], mesh)
+            profile = profiled(lambda: step_fn(state, batch), top=8,
+                               watch=("flash_fwd_sm90", "nccl"))
+            del log[n:], batch
+        del state, step_fn
+        torch.cuda.empty_cache()
+    sharded, plain = logs["sharded"], logs["unsharded"]
+    want = [2 * attention_uses(cfg)] * n
+    row = {"phase": "parallel", "model": cfg.name, "mesh": {"data": 1, "model": 1},
+           "route": trainer.route(cfg), "family": cfg.family,
+           "depth_cut": {"fields": spec["cut"], "layers": layer_count(cfg),
+                         "layers_full": layer_count(full),
+                         "layers_left_out": layer_count(full) - layer_count(cfg)},
+           "params": n_params, "batch": B, "seq": S,
+           "frames": cfg.frontend_len if cfg.family == "encdec" else None,
+           "steps": n, "remat": run.remat, "compute_dtype": cfg.compute_dtype,
+           "launches": launches, "flash_fwd_launches_per_step_want": want[0]}
+    for name, log in logs.items():
+        row[name] = {"losses": [x["loss"] for x in log],
+                     "grad_norms": [x["grad_norm"] for x in log],
+                     "step_ms": [x["ms"] for x in log],
+                     "flash_fwd_launches_per_step": [x["launches"] for x in log],
+                     "steps_peak_memory_gb": max(x["peak_gb"] for x in log)}
+    row["sharded"]["profile_one_step"] = profile
+    emit(row)
+    if trainer.route(cfg) != "partitioned":
+        raise AssertionError(f"parallel: {cfg.name}'s sharded step takes the "
+                             f"{trainer.route(cfg)!r} route, not the partitioned one")
+    losses = [x["loss"] for x in sharded]
+    if len(sharded) != n or not all(np.isfinite(losses)):
+        raise AssertionError(f"parallel: {cfg.name} took {len(sharded)} of {n} steps, "
+                             f"losses {losses}")
+    if any(a[k] != b[k] for a, b in zip(sharded, plain) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"parallel: {cfg.name}'s (1, 1) partitioned route is not the "
+                             f"unsharded trainer bit for bit: {row}")
+    if ([x["launches"] for x in sharded] != want or [x["launches"] for x in plain] != want
+            or launches != sum(want)):
+        raise AssertionError(f"parallel: {cfg.name}'s forward-kernel launches a step "
+                             f"{row['sharded']['flash_fwd_launches_per_step']} sharded, "
+                             f"{row['unsharded']['flash_fwd_launches_per_step']} unsharded, "
+                             f"{launches} in all; want {want}")
+    return launches
 
 
 def counted(fn):

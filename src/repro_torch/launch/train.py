@@ -16,9 +16,8 @@ group on a local file store, so one card runs the same code. The mesh is
 ``(dp, tp)`` over ``("data", "model")`` (``launch/mesh.py``): a group of another
 size raises ``MeshSizeError``. Parameters and AdamW moments are ``DTensor``s
 placed by ``parallel.sharding.param_specs``; each rank trains on its rows of
-the batch (``trainer.make_train_step(..., mesh=)``): the dense, vlm and moe
-families partitioned over ``model`` (ROADMAP A1), the others with every model
-rank of a data row at full width (C25). Only rank 0 prints and writes checkpoints;
+the batch (``trainer.make_train_step(..., mesh=)``), every family partitioned
+over ``model`` (ROADMAP A1, A1b). Only rank 0 prints and writes checkpoints;
 every rank takes part in gathering them, and a checkpoint restores under
 another ``(dp, tp)``.
 

@@ -214,6 +214,53 @@ def _kv_slice(p, first: int, count: int, hd: int):
     return {k: (w[:, cols] if k == "w" else w[cols]) for k, w in p.items()}
 
 
+def _rank_heads(p, cfg):
+    """``(split, H, kv)`` of this model rank: whether the layout of
+    ``parallel.ctx.model_parallel`` splits the q heads, the q heads the rank
+    computes, and ``kv = (wk, wv, Hkv, index)``: the leaves it projects its
+    kv heads with (its ``wk`` / ``wv`` shard where the layout splits the kv
+    heads too, else the columns of the whole leaves that its q heads need),
+    how many, and ``_kv_heads_of_q_heads``'s ``index``."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    lay = pctx.layout()
+    split = lay is not None and lay.heads
+    wk, wv, index = p["wk"], p["wv"], None
+    if split:
+        H //= pctx.model_size()
+        if lay.kv_heads:
+            Hkv //= pctx.model_size()
+        else:                                       # whole: this rank's kv heads
+            first, Hkv, index = _kv_heads_of_q_heads(cfg, H, pctx.model_index())
+            wk, wv = (_kv_slice(w, first, Hkv, cfg.head_dim) for w in (wk, wv))
+    return split, H, (wk, wv, Hkv, index)
+
+
+def _project_kv(kv, x, cfg, proj):
+    """(k, v), each (B, S, heads, hd), of ``x`` through ``_rank_heads``'s ``kv``
+    and ``proj`` (``layers.dense``, or ``dense_split`` of a ``split_input``)."""
+    wk, wv, Hkv, index = kv
+    B, S, _ = x.shape
+    dt = layers.to_dtype(cfg.compute_dtype)
+    k = proj(wk, x, dtype=dt).reshape(B, S, Hkv, cfg.head_dim)
+    v = proj(wv, x, dtype=dt).reshape(B, S, Hkv, cfg.head_dim)
+    if index is not None:                           # one kv head a q head
+        idx = torch.tensor(index, device=k.device)
+        k, v = k[:, :, idx], v[:, :, idx]
+    return k, v
+
+
+def project_cross_kv(p, enc_h, cfg):
+    """The cross-attention's (k, v) of the encoder output ``enc_h`` (B, S_enc,
+    d) through ``p``'s ``wk`` / ``wv``: the kv heads this model rank's q heads
+    need where the layout splits the heads (``_rank_heads``); the gradient of
+    ``enc_h`` is then the ranks' fp32 partials summed over ``model`` and
+    rounded once."""
+    split, _, kv = _rank_heads(p, cfg)
+    if split:
+        return _project_kv(kv, layers.split_input(enc_h), cfg, layers.dense_split)
+    return _project_kv(kv, enc_h, cfg, layers.dense)
+
+
 def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
                cross_kv=None, attn_fn=None, use_rope=True, causal=None, mode=None):
     """Returns (out, new_kv) where new_kv is (k, v) of this call's tokens.
@@ -232,26 +279,20 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     (``layers.dense_split``) and runs the kernel on those heads and the kv
     heads they map to, either its ``wk`` / ``wv`` shard (the layout splits
     the kv heads too) or the columns of the whole leaves that it needs, and
-    ``wo`` is ``layers.dense_joined`` over the ranks' heads. The kernel's
-    ``h -> h // G`` map on the local heads is the model's on the global ones.
+    ``wo`` is ``layers.dense_joined`` over the ranks' heads (``_rank_heads``;
+    a given ``cross_kv`` holds the kv heads of the rank's q heads,
+    ``project_cross_kv``). The kernel's ``h -> h // G`` map on the local
+    heads is the model's on the global ones.
     """
     B, L, _ = x.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    lay = pctx.layout()
-    split = lay is not None and lay.heads
+    hd = cfg.head_dim
+    split, H, kv = _rank_heads(p, cfg)
     dt = layers.to_dtype(cfg.compute_dtype)
     causal = cfg.causal if causal is None else causal
     proj, out_proj = layers.dense, layers.dense
-    wk, wv, index = p["wk"], p["wv"], None
     if split:
         proj, out_proj = layers.dense_split, layers.dense_joined
         x = layers.split_input(x)
-        H //= pctx.model_size()
-        if lay.kv_heads:
-            Hkv //= pctx.model_size()
-        else:                                       # whole: this rank's kv heads
-            first, Hkv, index = _kv_heads_of_q_heads(cfg, H, pctx.model_index())
-            wk, wv = _kv_slice(wk, first, Hkv, hd), _kv_slice(wv, first, Hkv, hd)
     q = proj(p["wq"], x, dtype=dt).reshape(B, L, H, hd)
     if cross_kv is not None:
         k, v = cross_kv
@@ -260,11 +301,7 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
         return out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt), None
 
-    k = proj(wk, x, dtype=dt).reshape(B, L, Hkv, hd)
-    v = proj(wv, x, dtype=dt).reshape(B, L, Hkv, hd)
-    if index is not None:                           # one kv head a q head
-        idx = torch.tensor(index, device=k.device)
-        k, v = k[:, :, idx], v[:, :, idx]
+    k, v = _project_kv(kv, x, cfg, proj)
     if use_rope:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)

@@ -7,7 +7,12 @@ there. Every attention goes to the hand-written kernels through
 ``kernels.ops``: the encoder's self-attention non-causal at L = S = S_enc, the
 decoder's causal (its KV cache when decoding), and the cross-attention
 non-causal at L != S, or as one token against the cached encoder rows in a
-decode step (``attention.cross_attend``).
+decode step (``attention.cross_attend``). Inside
+``parallel.ctx.model_parallel`` the attentions and MLPs split as
+``attention.attn_apply`` and ``layers.apply_mlp`` read the layout, the
+cross-attention's K/V project the encoder output on the kv heads of the
+rank's q heads (``attention.project_cross_kv``), and ``pos_dec`` and the norms
+run whole on every rank.
 
 The cache is ``{"k", "v": (dec_layers, B, S_max, Hkv, hd), "cross_k",
 "cross_v": (dec_layers, B, S_enc, Hkv, hd), "idx": int}``: ``idx`` is a host
@@ -30,16 +35,16 @@ POS_DEC_ROWS = 65536   # rows of the decoder's learned position table
 def _enc_block_init(gen, cfg):
     dev = gen.device
     return {
-        "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
+        "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
         "attn": attention.attn_init(gen, cfg),
-        "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
+        "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
         "mlp": layers.mlp_init(gen, cfg.mlp, cfg.d_model, cfg.d_ff, bias=cfg.bias),
     }
 
 
 def _dec_block_init(gen, cfg):
     p = _enc_block_init(gen, cfg)
-    p["xattn_norm"] = layers.norm_init(cfg.norm, cfg.d_model, gen.device)
+    p["xattn_norm"] = layers.norm_init(cfg.norm, cfg.d_model, device=gen.device)
     p["xattn"] = attention.attn_init(gen, cfg)
     return p
 
@@ -52,8 +57,8 @@ def init_encdec(cfg, gen: torch.Generator):
         "pos_dec": layers.truncated_normal(gen, (POS_DEC_ROWS, cfg.d_model), 0.01),
         "enc_blocks": [_enc_block_init(gen, cfg) for _ in range(cfg.enc_layers)],
         "dec_blocks": [_dec_block_init(gen, cfg) for _ in range(cfg.dec_layers)],
-        "enc_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
-        "dec_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
+        "enc_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
+        "dec_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
     }
 
 
@@ -100,12 +105,7 @@ def _dec_block(blk, h, cfg, enc_kv, *, positions, kv=None, cache_index=None,
 
 
 def _cross_kv(cfg, blk, enc_h):
-    B, S_enc, _ = enc_h.shape
-    dt = layers.to_dtype(cfg.compute_dtype)
-    shape = (B, S_enc, cfg.num_kv_heads, cfg.head_dim)
-    k = layers.dense(blk["xattn"]["wk"], enc_h, dtype=dt).reshape(shape)
-    v = layers.dense(blk["xattn"]["wv"], enc_h, dtype=dt).reshape(shape)
-    return k, v
+    return attention.project_cross_kv(blk["xattn"], enc_h, cfg)
 
 
 def _embed_dec(cfg, params, tokens, start: int):
@@ -148,7 +148,7 @@ def apply_encdec(cfg, params, frames, tokens, *, attn_fn=None, remat="full", mod
 # serving: prefill + single-token decode with a self cache and fixed cross K/V
 # ---------------------------------------------------------------------------
 
-def init_dec_cache(cfg, batch, max_seq, s_enc, dtype=torch.bfloat16, device="cpu"):
+def init_dec_cache(cfg, batch, max_seq, s_enc, dtype=torch.bfloat16, *, device):
     shape = (cfg.dec_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     cross = (cfg.dec_layers, batch, s_enc, cfg.num_kv_heads, cfg.head_dim)
     dt = layers.to_dtype(dtype)

@@ -13,9 +13,11 @@ whole contraction, as one device computes it. ``dense_split`` is a product on
 this rank's columns of a weight (the MLP's ``wg`` / ``wu`` on its share of
 ``d_ff``); ``dense_joined`` the second product of a pair, on its share of the
 output columns over the ranks' gathered inputs (``wd`` over the whole of
-``d_ff``). Where a sum over the model ranks remains (the gradient of a
-replicated input of ``dense_split``), each rank's partial products are taken
-in fp32 and the sum rounded once, as one device rounds its product. The
+``d_ff``); ``dense_columns`` a product of an input every rank holds whole on
+this rank's output columns, joined (a Mamba2 layer's ``out_proj``). Where a
+sum over the model ranks remains (the gradient of a replicated input of
+``dense_split``), each rank's partial products are taken in fp32 and the sum
+rounded once, as one device rounds its product. The
 embedding is vocabulary-parallel. Outside the scope every layer computes as
 on one device.
 """
@@ -143,20 +145,20 @@ class _SplitMM(torch.autograd.Function):
 
 class _JoinedMM(torch.autograd.Function):
     """The model ranks' blocks of ``x`` joined along the last dim, times ``w``
-    (a matrix, or every expert's): this rank's output columns where ``join``
-    (the ranks' columns then joined), else the whole ``w``, alike on every
-    rank. The gradient of ``x`` is taken in fp32 and rounded once: where
-    ``join``, the ranks' partials over their columns reduce-scattered back
-    to the blocks; else every rank holds the whole product's gradient and
-    keeps its block, with nothing to sum."""
+    (a matrix, or every expert's): this rank's output columns where ``split``
+    (the ranks' columns then joined where ``join``, else this rank's kept),
+    else the whole ``w``, alike on every rank. The gradient of ``x`` is taken
+    in fp32 and rounded once: where ``split``, the ranks' partials over their
+    columns reduce-scattered back to the blocks; else every rank holds the
+    whole product's gradient and keeps its block, with nothing to sum."""
 
     @staticmethod
-    def forward(ctx, x, w, join, group):
+    def forward(ctx, x, w, split, join, group):
         xf = pctx.all_gather(x, -1, group)
         ctx.save_for_backward(xf, w)
-        ctx.join, ctx.group = join, group
+        ctx.split, ctx.join, ctx.group = split, split and join, group
         y = _rows_mm(xf, w)
-        return pctx.all_gather(y, -1, group) if join else y
+        return pctx.all_gather(y, -1, group) if ctx.join else y
 
     @staticmethod
     def backward(ctx, dy):
@@ -170,7 +172,7 @@ class _JoinedMM(torch.autograd.Function):
             part = mm_f32(w, _flat(dy, w).transpose(-1, -2))
             if w.dim() == 3:
                 part = part.movedim(1, 0).contiguous()
-            if ctx.join:
+            if ctx.split:
                 out = part.new_empty((part.shape[0] // n,) + part.shape[1:])
                 dist.reduce_scatter_tensor(out, part, group=ctx.group)
             else:
@@ -179,7 +181,7 @@ class _JoinedMM(torch.autograd.Function):
             dx = _unflat(out.movedim(0, -1).to(xf.dtype), xf)
         if ctx.needs_input_grad[1]:
             dw = _weight_grad(xf, dy, w)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def split_input(x):
@@ -194,9 +196,9 @@ def split_mm(x, w):
     return _SplitMM.apply(x, w)
 
 
-def joined_mm(x, w, *, join: bool):
+def joined_mm(x, w, *, split: bool, join: bool = True):
     """``x @ w`` for this rank's block ``x`` of the contraction (``_JoinedMM``)."""
-    return _JoinedMM.apply(x, w, join, pctx.model_group())
+    return _JoinedMM.apply(x, w, split, join, pctx.model_group())
 
 
 def dense_split(p, x, *, dtype=torch.bfloat16):
@@ -215,17 +217,25 @@ def dense_joined(p, x, *, dtype=torch.bfloat16):
     ranks; ``p["w"]`` holds the whole contraction for this rank's block of the
     output columns where the layout splits ``d_model`` (the ranks then join
     them), else for all of them. The bias (whole) is added after."""
-    y = joined_mm(x.to(dtype), p["w"].to(dtype), join=pctx.layout().d_model)
+    y = joined_mm(x.to(dtype), p["w"].to(dtype), split=pctx.layout().d_model)
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
+
+
+def dense_columns(p, x, *, dtype=torch.bfloat16):
+    """``dense`` of an input ``x`` that every model rank holds whole, on this
+    rank's block of the output columns (``p`` a ``model`` shard of them), the
+    ranks' blocks then joined: each column is one device's, and the input's
+    gradient is the ranks' fp32 partials summed and rounded once."""
+    return pctx.gather_from_model(dense_split(p, split_input(x), dtype=dtype), -1)
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
-def norm_init(kind: str, d: int, device="cpu"):
+def norm_init(kind: str, d: int, *, device):
     if kind == "rmsnorm":
         return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
     if kind == "layernorm":

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import ctx as pctx
 
 
 def _dims(cfg):
@@ -44,15 +45,9 @@ def mamba_init(gen, cfg):
         "A_log": torch.log(torch.linspace(1.0, 16.0, n_heads, **f32)),
         "D": torch.ones((n_heads,), **f32),
         "dt_bias": torch.log(torch.expm1(torch.full((n_heads,), 0.01, **f32))),
-        "norm": layers.norm_init("rmsnorm", d_inner, dev),
+        "norm": layers.norm_init("rmsnorm", d_inner, device=dev),
         "out_proj": out_proj,
     }
-
-
-def _split_proj(cfg, zxbcdt):
-    d_inner, _, n_heads = _dims(cfg)
-    N = cfg.ssm_state
-    return torch.split(zxbcdt, [d_inner, d_inner, N, N, n_heads], dim=-1)
 
 
 def _causal_conv(x, w, b, conv_state=None):
@@ -108,15 +103,32 @@ def _ssd_chunked(xh, Bc, Cc, loga, dt, ssm0, Q):
 def mamba_apply(params, x, cfg, *, state=None):
     """x: (B,S,d). state: None (train/prefill from zero) or decode state dict
     {"conv": (B,K-1,C), "ssm": (B,H,p,N)}. Returns (y, new_state); the new
-    state's tensors are new (the one given is not written)."""
+    state's tensors are new (the one given is not written).
+
+    Where the layout of ``parallel.ctx.model_parallel`` splits the heads,
+    ``params`` holds this model rank's columns of ``in_proj`` and channels of
+    the convolution (its heads' z, x and dt, and B and C whole:
+    ``parallel.sharding.Segments``) and its heads of ``A_log``, ``D`` and
+    ``dt_bias``: ``in_proj`` is a ``layers.split_mm`` product, the
+    convolution and the SSD run on the rank's heads, and the heads' outputs
+    and z are joined over ``model`` before the inner norm, which spans every
+    head. The norm and the gate then run alike on every rank, and
+    ``out_proj`` is ``layers.dense_columns`` where the layout splits
+    ``d_model``. The state returned holds the rank's heads."""
     B, S, _ = x.shape
     N = cfg.ssm_state
     d_inner, p, H = _dims(cfg)
     Q = min(cfg.ssm_chunk, S)
     dt_c = layers.to_dtype(cfg.compute_dtype)
+    lay = pctx.layout()
+    split = lay is not None and lay.ssm_heads
 
-    zxbcdt = layers.dense(params["in_proj"], x, dtype=dt_c)
-    z, xc, Bc, Cc, dt = _split_proj(cfg, zxbcdt)
+    if split:
+        d_inner, H = d_inner // pctx.model_size(), H // pctx.model_size()
+        zxbcdt = layers.dense_split(params["in_proj"], layers.split_input(x), dtype=dt_c)
+    else:
+        zxbcdt = layers.dense(params["in_proj"], x, dtype=dt_c)
+    z, xc, Bc, Cc, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
     conv_in = torch.cat([xc, Bc, Cc], dim=-1).float()
     conv_out, conv_state = _causal_conv(
         conv_in, params["conv_w"], params["conv_b"],
@@ -145,13 +157,17 @@ def mamba_apply(params, x, cfg, *, state=None):
         y = y.reshape(B, S, d_inner)
     new_state = {"conv": conv_state, "ssm": h}
 
-    y = layers.apply_norm("rmsnorm", params["norm"], y.to(dt_c))
+    y = y.to(dt_c)
+    if split:
+        y, z = pctx.gather_from_model(y, -1), pctx.gather_from_model(z, -1)
+    y = layers.apply_norm("rmsnorm", params["norm"], y)
     y = y * F.silu(z.float()).to(dt_c)
-    out = layers.dense(params["out_proj"], y, dtype=dt_c)
-    return out, new_state
+    if split and lay.d_model:
+        return layers.dense_columns(params["out_proj"], y, dtype=dt_c), new_state
+    return layers.dense(params["out_proj"], y, dtype=dt_c), new_state
 
 
-def mamba_state_init(cfg, batch, device="cpu"):
+def mamba_state_init(cfg, batch, *, device):
     """A zero decode state, fp32 whatever the compute type."""
     d_inner, p, H = _dims(cfg)
     f32 = dict(dtype=torch.float32, device=device)

@@ -89,7 +89,7 @@ def _expert_ffn(p, xin, cfg, dt):
     if mode == "tp":
         xs = layers.split_input(xin)
         h = act(layers.split_mm(xs, p["wg"].to(dt))) * layers.split_mm(xs, p["wu"].to(dt))
-        return layers.joined_mm(h, p["wd"].to(dt), join=pctx.layout().d_model)
+        return layers.joined_mm(h, p["wd"].to(dt), split=pctx.layout().d_model)
     g = torch.einsum("...ecd,edf->...ecf", xin, p["wg"].to(dt))
     u = torch.einsum("...ecd,edf->...ecf", xin, p["wu"].to(dt))
     y = torch.einsum("...ecf,efd->...ecd", act(g) * u, p["wd"].to(dt))

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel import ctx as pctx
 
 N_MIX = 5          # w, k, v, r, g DDLerp mixes
 LORA_MIX = 32
@@ -119,10 +120,21 @@ def _wkv_chunked(r, k, v, lw, u, S0, Q):
 
 
 def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
-    """x: (B,S,d). S0: (B,H,p,p) state (k-dim, v-dim). Returns y, S', x_last."""
+    """x: (B,S,d). S0: (B,H,p,p) state (k-dim, v-dim). Returns y, S', x_last.
+
+    Where the layout of ``parallel.ctx.model_parallel`` splits the heads,
+    ``p`` holds this model rank's block of the head-shaped leaves
+    (``parallel.sharding.compute_layout``): the token-shift mixes and the
+    LoRAs' first products run alike on every rank; ``wr`` / ``wk`` / ``wv`` /
+    ``wg`` and ``decay_w2`` are ``layers.split_mm`` products on the rank's
+    heads, the scan, ``u`` and the per-head ``ln_x`` run on them (the rank's
+    heads of ``S0``, and the state returned is theirs), and ``wo`` is
+    ``layers.dense_joined`` over the ranks' heads."""
     B, S, d = x.shape
     ph = cfg.rwkv_head_dim
     H = d // ph
+    lay = pctx.layout()
+    split = lay is not None and lay.ssm_heads
     w = {k: p[k].float() for k in ("maa_x", "maa_wkvrg", "maa_w1", "maa_w2", "decay",
                                    "decay_w1", "decay_w2", "u")}
     xf = x.float()
@@ -134,12 +146,18 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
     xw, xk, xv, xr, xg = [xf + dx * (w["maa_wkvrg"][i] + mix[:, :, i])
                           for i in range(N_MIX)]
 
-    logw = -torch.exp(w["decay"] + torch.tanh(xw @ w["decay_w1"]) @ w["decay_w2"])
+    def proj(xm, wm):
+        return layers.split_mm(layers.split_input(xm), wm) if split else xm @ wm
+
+    if split:
+        H //= pctx.model_size()
+        S0 = S0[:, pctx.model_index() * H:(pctx.model_index() + 1) * H]
+    logw = -torch.exp(w["decay"] + proj(torch.tanh(xw @ w["decay_w1"]), w["decay_w2"]))
     logw = torch.clamp(logw, -60.0, -1e-5)                                # (B,S,d) < 0
-    r = (xr @ p["wr"]["w"].float()).reshape(B, S, H, ph)
-    k = (xk @ p["wk"]["w"].float()).reshape(B, S, H, ph)
-    v = (xv @ p["wv"]["w"].float()).reshape(B, S, H, ph)
-    g = F.silu(xg @ p["wg"]["w"].float())
+    r = proj(xr, p["wr"]["w"].float()).reshape(B, S, H, ph)
+    k = proj(xk, p["wk"]["w"].float()).reshape(B, S, H, ph)
+    v = proj(xv, p["wv"]["w"].float()).reshape(B, S, H, ph)
+    g = F.silu(proj(xg, p["wg"]["w"].float()))
     lw = logw.reshape(B, S, H, ph)
     u = w["u"]
     S0 = S0.float()
@@ -149,28 +167,48 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
         kv = k1[..., :, None] * v1[..., None, :]                          # (B,H,p,p)
         y = torch.einsum("bhi,bhij->bhj", r1, S0 + u[None, :, :, None] * kv)
         S_new = S0 * torch.exp(lw1)[..., None] + kv
-        y = y.reshape(B, 1, d)
+        y = y.reshape(B, 1, H * ph)
     else:
         y, S_new = _wkv_chunked(r, k, v, lw, u, S0, min(chunk, S))
 
     y = _group_norm(p["ln_x"], y, H)
-    y = (y.float() * g) @ p["wo"]["w"].float()
+    if split:
+        y = layers.dense_joined(p["wo"], y.float() * g, dtype=torch.float32)
+    else:
+        y = (y.float() * g) @ p["wo"]["w"].float()
     return y.to(x.dtype), S_new, xf[:, -1]
 
 
 def channel_mix(p, x, *, x_prev):
+    """Where the layout of ``parallel.ctx.model_parallel`` splits ``d_ff``,
+    ``wk`` is a ``layers.split_mm`` product on this model rank's hidden units
+    and ``wv`` the pair's second product (``layers.joined_mm``). Where it also
+    splits ``d_model``, ``wr`` holds the rank's block of the output columns
+    that ``wv`` gives it: the receptance gate multiplies that block, and the
+    ranks' gated blocks are joined. Else ``wr`` and the gate run whole, alike
+    on every rank."""
     xf = x.float()
     sx = _token_shift(xf, x_prev)
     dx = sx - xf
     xk = xf + dx * p["maa_k"].float()
     xr = xf + dx * p["maa_r"].float()
-    k = torch.square(F.relu(xk @ p["wk"]["w"].float()))
-    kv = k @ p["wv"]["w"].float()
-    y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
+    lay = pctx.layout()
+    if lay is None or not lay.d_ff:
+        k = torch.square(F.relu(xk @ p["wk"]["w"].float()))
+        kv = k @ p["wv"]["w"].float()
+        y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
+        return y.to(x.dtype), xf[:, -1]
+    k = torch.square(F.relu(layers.split_mm(layers.split_input(xk), p["wk"]["w"].float())))
+    kv = layers.joined_mm(k, p["wv"]["w"].float(), split=lay.d_model, join=False)
+    if lay.d_model:
+        r = layers.split_mm(layers.split_input(xr), p["wr"]["w"].float())
+        y = pctx.gather_from_model(torch.sigmoid(r) * kv, -1)
+    else:
+        y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
     return y.to(x.dtype), xf[:, -1]
 
 
-def rwkv_state_init(cfg, batch, device="cpu"):
+def rwkv_state_init(cfg, batch, *, device):
     """A zero state, fp32 whatever the compute type."""
     d = cfg.d_model
     p = cfg.rwkv_head_dim

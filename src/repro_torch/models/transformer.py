@@ -21,7 +21,7 @@ Public API (used by train/, serve/ and launch/):
     apply_lm(cfg, params, tokens, ...)      -> (hidden, aux, kvs|None)
     prefill_lm(cfg, params, tokens, ...)    -> (hidden, cache)
     decode_lm(cfg, params, cache, tokens)   -> (logits, cache)      1 new token
-    init_cache(cfg, batch, max_seq)         -> cache dict
+    init_cache(cfg, batch, max_seq, device=) -> cache dict
     unembed(cfg, params, hidden)            -> logits
 
 The cache is ``{"k", "v": (L, B, S_max, Hkv, hd), "idx": int}``; a hybrid
@@ -93,9 +93,9 @@ def _require_ported(cfg):
 def _block_init(gen, cfg):
     dev = gen.device
     p = {
-        "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
+        "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
         "attn": attention.attn_init(gen, cfg),
-        "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, dev),
+        "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
     }
     if cfg.family == "moe":
         p["moe"] = moe.moe_init(gen, cfg)
@@ -124,7 +124,7 @@ def _block_apply(p, x, cfg, *, positions, kv=None, cache_index=None,
 
 
 def _mamba_layer_init(gen, cfg):
-    return {"norm": layers.norm_init(cfg.norm, cfg.d_model, gen.device),
+    return {"norm": layers.norm_init(cfg.norm, cfg.d_model, device=gen.device),
             "mamba": mamba.mamba_init(gen, cfg)}
 
 
@@ -137,8 +137,8 @@ def _mamba_layer_apply(p, x, cfg, state=None):
 def _rwkv_layer_init(gen, cfg):
     dev = gen.device
     return {"block": rwkv.rwkv_init(gen, cfg),
-            "ln1": layers.norm_init("layernorm", cfg.d_model, dev),
-            "ln2": layers.norm_init("layernorm", cfg.d_model, dev)}
+            "ln1": layers.norm_init("layernorm", cfg.d_model, device=dev),
+            "ln2": layers.norm_init("layernorm", cfg.d_model, device=dev)}
 
 
 def _rwkv_layer_apply(p, x, state, *, cfg):
@@ -174,7 +174,7 @@ def init_lm(cfg, gen: torch.Generator):
     """Seeded parameters in fp32, on the generator's device."""
     _require_ported(cfg)
     params = {"emb": layers.embed_init(gen, cfg.vocab_size, cfg.d_model),
-              "final_norm": layers.norm_init(cfg.norm, cfg.d_model, gen.device)}
+              "final_norm": layers.norm_init(cfg.norm, cfg.d_model, device=gen.device)}
     if not cfg.tie_embeddings:
         params["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size)
     if cfg.family == "hybrid":
@@ -187,7 +187,7 @@ def init_lm(cfg, gen: torch.Generator):
         return params
     if cfg.family == "ssm":
         params["blocks"] = [_rwkv_layer_init(gen, cfg) for _ in range(cfg.num_layers)]
-        params["ln0"] = layers.norm_init("layernorm", cfg.d_model, gen.device)
+        params["ln0"] = layers.norm_init("layernorm", cfg.d_model, device=gen.device)
         return params
     params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.num_layers)]
     return params
@@ -225,7 +225,7 @@ def cast_params(cfg, params, dtype=None, device=None):
 # caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, device="cpu"):
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *, device):
     _require_ported(cfg)
     hd, hkv = cfg.head_dim, cfg.num_kv_heads
     dt = layers.to_dtype(dtype)

@@ -55,8 +55,25 @@ gradients past the 1e-5 parity with one device (ROADMAP C32).
     them, else computed whole on every rank (minicpm's odd vocabulary
     122753). The second product of a pair splits its output columns only
     where tp divides ``d_model``; else every rank computes all of them.
-  * everything else (norms, the router, the residual) computes whole, alike
-    on every model rank.
+  * Mamba2 (hybrid) and RWKV6 (ssm) heads: where tp divides them, each rank
+    computes its block of the heads. A Mamba2 layer's ``in_proj`` fuses
+    z, x, B, C and dt: each rank takes the z, x and dt columns of its heads
+    and the B and C columns whole (``Segments``; every head reads B and C, so
+    each rank's gradient of those columns is a partial sum), its
+    convolution's x channels likewise, and ``A_log`` / ``D`` / ``dt_bias``
+    by heads. The inner RMSNorm spans every head, so the heads' outputs and
+    z are joined over ``model`` before it; the norm and the gate run alike
+    on every rank and ``out_proj`` computes this rank's ``d_model`` columns
+    of the joined input (``layers.dense_columns``). RWKV6's time mix splits
+    ``wr`` / ``wk`` / ``wv`` / ``wg``, the decay (``decay`` and
+    ``decay_w2``'s columns), ``u``, the WKV scan and the per-head ``ln_x``
+    by heads; its token-shift mixes and LoRA's first products are computed
+    alike on every rank, and ``wo`` is a pair's second product. Its channel
+    mix splits ``wk`` by ``d_ff``; ``wv`` is the pair's second product, and
+    ``wr`` splits on the output columns ``wv`` gives the rank, the gate
+    applied before the join.
+  * everything else (norms, the router, the residual, ``pos_dec``) computes
+    whole, alike on every model rank.
 
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
@@ -68,6 +85,7 @@ import re
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
@@ -256,6 +274,20 @@ class ModelLayout:
     d_model: bool        # the output columns of a pair's second product
     vocab: bool
     experts: str         # "ep", "tp" (each expert's d_ff) or "none"
+    ssm_heads: bool = False   # Mamba2's (hybrid) or RWKV6's (ssm) heads
+
+
+MAMBA_HEAD_DIM = 64      # models/mamba.py's Mamba2 head dim
+
+
+def ssm_heads(cfg) -> int:
+    """The heads of a hybrid model's Mamba2 layers or an ssm model's RWKV6
+    layers (0 for the other families)."""
+    if cfg.family == "hybrid":
+        return cfg.ssm_expand * cfg.d_model // MAMBA_HEAD_DIM
+    if cfg.family == "ssm":
+        return cfg.d_model // cfg.rwkv_head_dim
+    return 0
 
 
 def model_layout(cfg, tp: int) -> ModelLayout:
@@ -265,17 +297,84 @@ def model_layout(cfg, tp: int) -> ModelLayout:
     if cfg.num_experts:
         experts = ("ep" if cfg.num_experts % tp == 0
                    else "tp" if cfg.d_ff % tp == 0 else "none")
+    n_ssm = ssm_heads(cfg)
     return ModelLayout(heads=heads, kv_heads=heads and cfg.num_kv_heads % tp == 0,
                        d_ff=cfg.d_ff % tp == 0, d_model=cfg.d_model % tp == 0,
-                       vocab=cfg.vocab_size % tp == 0, experts=experts)
+                       vocab=cfg.vocab_size % tp == 0, experts=experts,
+                       ssm_heads=bool(n_ssm) and n_ssm % tp == 0)
+
+
+@dataclass(frozen=True)
+class Segments:
+    """A spec entry for a dim that joins segments of ``sizes`` columns: over
+    ``model`` each rank takes its block of every segment whose ``split`` is
+    set and the others whole, in order (a Mamba2 layer's fused ``in_proj``:
+    z, x, B, C, dt)."""
+    sizes: Tuple[int, ...]
+    split: Tuple[bool, ...]
+
+    def take(self, t, dim: int, tp: int, rank: int):
+        """Model rank ``rank``'s columns of ``t`` (the whole dim) along ``dim``."""
+        if tp == 1:
+            return t
+        parts, start = [], 0
+        for size, split in zip(self.sizes, self.split):
+            n = size // tp if split else size
+            parts.append(t.narrow(dim, start + (rank * n if split else 0), n))
+            start += size
+        return torch.cat(parts, dim=dim)
 
 
 _COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|emb/table|unembed)"
                            r"(?:/([wb]))?$")
+# an RWKV6 layer's leaves that split by heads, and the dim of each
+_RWKV_HEADS = re.compile(r"tmix/(?:(w[rkvg]/w|decay_w2)|(decay|u|ln_x/scale|ln_x/bias))$")
 
 
-def _compute_leaf(lay: ModelLayout, path: str, ndim: int):
+def _columns(ndim, dim=None):
+    """A spec over ``model`` splitting ``dim`` (the last by default)."""
+    dim = ndim - 1 if dim is None else dim
+    return tuple("model" if i == dim else None for i in range(ndim))
+
+
+def _ssm_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
+    """(spec, gradient kind) of a Mamba2 or RWKV6 leaf, or ``None`` for
+    another leaf (``_compute_leaf``)."""
+    whole = ((None,) * ndim, "same")
+    if "/mamba/" in path:
+        if not lay.ssm_heads:
+            return whole
+        d_inner, N, H = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, ssm_heads(cfg)
+        if path.endswith("in_proj/w"):
+            return (None, Segments((d_inner, d_inner, N, N, H),
+                                   (True, True, False, False, True))), "sum"
+        if path.endswith(("conv_w", "conv_b")):
+            return tuple(None for _ in range(ndim - 1)) + (
+                Segments((d_inner, N, N), (True, False, False)),), "sum"
+        if path.endswith(("A_log", "/D", "dt_bias")):
+            return ("model",), "shard"
+        if path.endswith("out_proj/w") and lay.d_model:
+            return _columns(ndim), "shard"
+        return whole                                # the inner norm, out_proj whole
+    if "/tmix/" in path:
+        m = _RWKV_HEADS.search(path)
+        if not lay.ssm_heads or m is None:
+            # wo a pair's second product (d_model divides where the heads do)
+            split = lay.ssm_heads and path.endswith("tmix/wo/w")
+            return (_columns(ndim), "shard") if split else whole
+        return _columns(ndim, None if m.group(1) else 0), "shard"
+    if "/cmix/" in path:
+        split = {"cmix/wk/w": lay.d_ff, "cmix/wv/w": lay.d_ff and lay.d_model,
+                 "cmix/wr/w": lay.d_ff and lay.d_model}.get(path[path.find("cmix/"):])
+        return (_columns(ndim), "shard") if split else whole
+    return None
+
+
+def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
     """(spec over ``model``, gradient kind) of one leaf (``compute_layout``)."""
+    ssm = _ssm_leaf(lay, cfg, path, ndim)
+    if ssm is not None:
+        return ssm
     m = _COMPUTE_LEAF.search(path)
     name, wb = (m.group(1), m.group(2)) if m else ("", None)
     split = {"attn/wq": lay.heads, "attn/wk": lay.kv_heads, "attn/wv": lay.kv_heads,
@@ -292,7 +391,7 @@ def _compute_leaf(lay: ModelLayout, path: str, ndim: int):
     # experts over EP and the embedding table by rows; the rest by columns
     dim = 0 if (name.startswith("moe/") and lay.experts == "ep") or name == "emb/table" \
         else ndim - 1
-    return tuple("model" if i == dim else None for i in range(ndim)), "shard"
+    return _columns(ndim, dim), "shard"
 
 
 def compute_layout(cfg, params_shape, mesh):
@@ -306,7 +405,7 @@ def compute_layout(cfg, params_shape, mesh):
     out = []
     for path_elems, leaf in tree.leaves_with_paths(params_shape):
         path = "/".join(str(p) for p in path_elems if not isinstance(p, int))
-        out.append(_compute_leaf(lay, path, len(leaf.shape)))
+        out.append(_compute_leaf(lay, cfg, path, len(leaf.shape)))
     return out
 
 

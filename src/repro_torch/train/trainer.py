@@ -17,23 +17,23 @@ rank runs the loss and the kernels on plain tensors over its own rows (inside
 ``parallel.ctx.data_parallel``, so the loss's token count and the MoE
 load-balance statistics are the global batch's), and the gradient comes back
 summed over the data axes and reduce-scattered into the parameter's
-placements; the optimizer updates each rank's shards. Two routes, by family
-(``route``):
+placements; the optimizer updates each rank's shards. Every family takes the
+partitioned route (``route``): each parameter is gathered over the data axes
+and placed over ``model`` as ``parallel.sharding.compute_layout`` says (a
+leaf the layout does not split, such as an attention leaf whose shard would
+not fall on head boundaries, is gathered over ``model`` too; a Mamba2 layer's
+fused ``in_proj`` is gathered and cut to this rank's columns,
+``sharding.Segments``). The loss runs inside ``parallel.ctx.model_parallel``
+with the same ``sharding.model_layout``: heads (attention, Mamba2 and RWKV6
+heads), ``d_ff``, the vocabulary and the experts (or each expert's ``d_ff``)
+are partitioned over ``model``, as the reference's GSPMD step partitions
+them, in column-parallel products.
 
-* ``"partitioned"`` (dense, vlm, moe: the families whose layers are
-  ``transformer._block_apply``): each parameter is gathered over the data
-  axes and placed over ``model`` as ``parallel.sharding.compute_layout``
-  says (a leaf the layout does not split, such as an attention leaf whose
-  shard would not fall on head boundaries, is gathered over ``model`` too).
-  The loss runs inside ``parallel.ctx.model_parallel`` with the same
-  ``sharding.model_layout``: heads, ``d_ff``, the vocabulary and the experts
-  (or each expert's ``d_ff``) are partitioned over ``model``, as the
-  reference's GSPMD step partitions them, in column-parallel products.
-* ``"gathered"`` (hybrid, ssm, encdec): every parameter is gathered with
-  ``full_tensor``, and every model rank of a data row computes that row at
-  full width: only the state at rest is sharded over ``model`` (ROADMAP
-  C25). Their rules shard fused projections whose columns are not heads
-  (Mamba2's ``in_proj`` concatenates z, x, B, C and dt).
+``"gathered"`` is the route of the first sharded step (ROADMAP C25), kept as
+the yardstick ``tests/test_torch_cost.py`` counts the partitioned route
+against and reached by no family: every parameter is gathered with
+``full_tensor``, and every model rank of a data row computes that row at
+full width; only the state at rest is sharded over ``model``.
 
 Every family of the registry is ported (an encdec batch carries its
 ``frames``); ``init_state`` and ``make_loss_fn`` raise ``NotImplementedError``
@@ -58,7 +58,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.loss import chunked_cross_entropy
 
 
-PARTITIONED_FAMILIES = ("dense", "vlm", "moe")
+PARTITIONED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
 
 
 def route(cfg) -> str:
@@ -186,8 +186,12 @@ def _partitioned_gather(cfg, params, mesh):
     """The plain tensors the partitioned loss computes with, one a leaf of
     ``params`` (DTensors): each leaf gathered over the data axes, in its
     ``compute_layout`` over ``model``, its gradient coming back summed over
-    the data axes and, over ``model``, as the layout says."""
+    the data axes and, over ``model``, as the layout says. A ``Segments``
+    entry (a Mamba2 layer's fused ``in_proj``) gathers the leaf over ``model``
+    and keeps this rank's columns of it, a copy: the whole leaf is not held
+    past the gather."""
     names, fsdp = shd.axis_names(mesh), shd.fsdp_axes(mesh)
+    tp, rank = shd.axis_sizes(mesh)["model"], mesh.get_local_rank("model")
     out = []
     for p, (spec, grad) in zip(tree.leaves(params), shd.compute_layout(cfg, params, mesh)):
         model = next((Shard(i) for i, e in enumerate(spec) if e == "model"), Replicate())
@@ -195,7 +199,11 @@ def _partitioned_gather(cfg, params, mesh):
         compute = tuple(model if n == "model" else Replicate() for n in names)
         grad_pl = tuple(Partial("sum") if n in fsdp else model_grad if n == "model"
                         else Replicate() for n in names)
-        out.append(p.redistribute(mesh, compute).to_local(grad_placements=grad_pl))
+        t = p.redistribute(mesh, compute).to_local(grad_placements=grad_pl)
+        for dim, e in enumerate(spec):
+            if isinstance(e, shd.Segments):
+                t = e.take(t, dim, tp, rank)
+        out.append(t)
     return out
 
 

@@ -103,7 +103,7 @@ def test_mamba_apply_matches_jax(dtype, path):
     x = rng.standard_normal((B, S, ct.d_model)).astype(np.float32)
     sj = st = None
     if path != "chunked":
-        zero = tmamba.mamba_state_init(ct, B)
+        zero = tmamba.mamba_state_init(ct, B, device="cpu")
         s_np = {k: (0.5 * rng.standard_normal(v.shape)).astype(np.float32)
                 for k, v in zero.items()}
         sj = {k: jnp.asarray(v) for k, v in s_np.items()}
@@ -127,7 +127,7 @@ def test_mamba_chunked_matches_recurrent(chunk):
     B, S = 2, 12
     x = 0.5 * torch.randn((B, S, ct.d_model), generator=torch.Generator().manual_seed(1))
     y_chunk, st_chunk = tmamba.mamba_apply(p, x, ct)
-    st = tmamba.mamba_state_init(ct, B)
+    st = tmamba.mamba_state_init(ct, B, device="cpu")
     ys = []
     for t in range(S):
         y_t, st = tmamba.mamba_apply(p, x[:, t:t + 1], ct, state=st)

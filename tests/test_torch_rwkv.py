@@ -87,7 +87,7 @@ def _layer0(pj, pt, part):
 
 
 def _state(ct, B, rng, zero=False):
-    st = trwkv.rwkv_state_init(ct, B)
+    st = trwkv.rwkv_state_init(ct, B, device="cpu")
     if zero:
         return {k: v.numpy() for k, v in st.items()}
     return {k: (0.5 * rng.standard_normal(v.shape)).astype(np.float32) for k, v in st.items()}

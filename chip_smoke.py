@@ -113,7 +113,13 @@ Phases, each printing one JSON line:
            batches: losses and global gradient norms within 1e-5 relative,
            the same forward-kernel launches a step (2 x 16) on both routes;
            step ms and peak memory of both; the card's total_memory against
-           launch/specs.py's HBM_BUDGET. Then, in the same NCCL group, one
+           launch/specs.py's HBM_BUDGET. Then the same 3 steps through
+           trainer.make_train_step(..., mesh=) on the (1, 1) mesh inside a
+           train cell's activation scope (residual spec ("data", "model",
+           None): sequence parallelism, trainer.seq_parallel holds, and at
+           one model rank its operators are the identity): losses and norms
+           equal the unsharded trainer's bit for bit, the same launches a
+           step. Then, in the same NCCL group, one
            run a family through trainer.make_train_step(..., mesh=) on a
            (1, 1) mesh at full width, bf16 compute, remat "full", 3 steps,
            beside the unsharded trainer from the same seed and batches:
@@ -190,6 +196,7 @@ from repro_torch.launch import train as launch_train          # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models import api, mamba, moe, rwkv          # noqa: E402
 from repro_torch.models.attention import knob_attention       # noqa: E402
+from repro_torch.parallel import ctx as pctx                  # noqa: E402
 from repro_torch.serve.decode import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
 from repro_torch.data.synthetic import DataIterator, token_batch  # noqa: E402
@@ -274,6 +281,7 @@ PARALLEL_FAMILIES = [
     dict(arch="whisper-large-v3", batch=2, seq=64, cut={}),
 ]
 PARALLEL_TOL = 1e-5    # sharded (1, 1) mesh against the unsharded trainer: losses, grad norms
+SP_RESIDUAL = ("data", "model", None)   # a train cell's residual spec (launch/specs.py)
 WGRAD_TOL = 4e-2       # wq/wk/wv grads, kernels against the plain bf16-P route, relative in
                        # norm: twice the largest reading (1.92e-2, layer 0 wq)
 MOE = dict(arch="dbrx-132b", layers=2, requests=8, prompt_len=512, slots=4, max_new=16,
@@ -2158,6 +2166,7 @@ def phase_parallel(kernels):
         profile = {"sharded": profiled(lambda: step_fn(state, batch), watch=("nccl",))}
         del state, step_fn, batch
         torch.cuda.empty_cache()
+        scoped, seq = seq_parallel_scope(cfg, run, mesh, batches)
         family_launches = {spec["arch"]: parallel_family(spec, mesh, n)
                            for spec in PARALLEL_FAMILIES}
     finally:
@@ -2191,7 +2200,13 @@ def phase_parallel(kernels):
           "profile_one_step": profile, "route": trainer.route(cfg),
           "gathered_route_sharded": PARALLEL_GATHERED_ROUTE,
           "relative_difference": rel, "tolerance": PARALLEL_TOL, "launches": counts,
-          "total_memory": total, "hbm_budget": specs.HBM_BUDGET})
+          "total_memory": total, "hbm_budget": specs.HBM_BUDGET,
+          "train_cell_scope": {"residual": SP_RESIDUAL, "seq_parallel": seq,
+                               "losses": [x["loss"] for x in scoped],
+                               "grad_norms": [x["grad_norm"] for x in scoped],
+                               "step_ms": [x["ms"] for x in scoped],
+                               "flash_fwd_launches_per_step": [x["launches"] for x in scoped],
+                               "steps_peak_memory_gb": max(x["peak_gb"] for x in scoped)}})
     if rc != 0 or len(sharded) != n:
         raise AssertionError(f"parallel: launch/train.py returned {rc} after {len(sharded)} "
                              f"of {n} steps")
@@ -2203,6 +2218,14 @@ def phase_parallel(kernels):
     if any(a[k] != b[k] for a, b in zip(sharded, plain) for k in ("loss", "grad_norm")):
         raise AssertionError(f"parallel: the (1, 1) partitioned route is not the unsharded "
                              f"trainer bit for bit: {rel}")
+    if not seq or any(a[k] != b[k] for a, b in zip(scoped, plain)
+                      for k in ("loss", "grad_norm")) or len(scoped) != n:
+        raise AssertionError(f"parallel: inside the train cell's scope (seq_parallel {seq}) "
+                             f"the (1, 1) step is not the unsharded trainer bit for bit: "
+                             f"{scoped} against {plain}")
+    if [x["launches"] for x in scoped] != [2 * L] * n:
+        raise AssertionError(f"parallel: forward-kernel launches a step inside the train "
+                             f"cell's scope {[x['launches'] for x in scoped]}, want {2 * L}")
     want = [2 * L] * n
     got = [x["launches"] for x in sharded]
     if got != want or [x["launches"] for x in plain] != want or counts["flash_fwd"] != 2 * L * n:
@@ -2213,6 +2236,22 @@ def phase_parallel(kernels):
         if kern["name"] == "flash_fwd":
             kern["launches_parallel"] = counts["flash_fwd"]
             kern["launches_parallel_families"] = family_launches
+
+
+def seq_parallel_scope(cfg, run, mesh, batches):
+    """``batches`` through the sharded step on ``mesh`` inside a train cell's
+    activation scope (``SP_RESIDUAL``): (each step's log, whether
+    ``trainer.seq_parallel`` held)."""
+    log = []
+    state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device=DEV), mesh)
+    step_fn = recorded_steps(trainer.make_train_step, log)(cfg, run, mesh=mesh)
+    with pctx.activation_sharding(residual=SP_RESIDUAL):
+        seq = trainer.seq_parallel(cfg, mesh, trainer.seq_len(batches[0]))
+        for batch in batches:
+            state, _ = step_fn(state, trainer.shard_batch(batch, mesh))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return log, seq
 
 
 def attention_uses(cfg) -> int:

@@ -257,7 +257,7 @@ def project_cross_kv(p, enc_h, cfg):
     rounded once."""
     split, _, kv = _rank_heads(p, cfg)
     if split:
-        return _project_kv(kv, layers.split_input(enc_h), cfg, layers.dense_split)
+        return _project_kv(kv, layers.whole_input(enc_h), cfg, layers.dense_split)
     return _project_kv(kv, enc_h, cfg, layers.dense)
 
 
@@ -283,16 +283,27 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     a given ``cross_kv`` holds the kv heads of the rank's q heads,
     ``project_cross_kv``). The kernel's ``h -> h // G`` map on the local
     heads is the model's on the global ones.
+
+    Under sequence parallelism (``parallel.ctx.seq_parallel()``) ``x`` is
+    this model rank's rows and so is the output: q, k and v come from the
+    gathered sequence (``layers.split_input``), rope runs on the whole
+    ``positions``, the kernel on the rank's heads over the whole sequence,
+    and ``wo`` hands back the rank's rows (``layers.dense_joined``). Where
+    the q heads do not split, the whole attention runs alike on every rank on
+    the gathered sequence, and each rank keeps its rows of the output.
     """
-    B, L, _ = x.shape
     hd = cfg.head_dim
     split, H, kv = _rank_heads(p, cfg)
+    rows = pctx.seq_parallel() and not split
+    if rows:
+        x = pctx.gather_from_model(x, 1)
     dt = layers.to_dtype(cfg.compute_dtype)
     causal = cfg.causal if causal is None else causal
     proj, out_proj = layers.dense, layers.dense
     if split:
         proj, out_proj = layers.dense_split, layers.dense_joined
         x = layers.split_input(x)
+    B, L, _ = x.shape
     q = proj(p["wq"], x, dtype=dt).reshape(B, L, H, hd)
     if cross_kv is not None:
         k, v = cross_kv
@@ -319,4 +330,6 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     else:
         o = ops.mha_forward(q, k, v, causal=causal, mode=mode)
     out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
+    if rows:
+        out = pctx.seq_rows(out)
     return out, (pctx.constrain(k, "kv_collect"), pctx.constrain(v, "kv_collect"))

@@ -20,6 +20,15 @@ sum over the model ranks remains (the gradient of a replicated input of
 rounded once, as one device rounds its product. The
 embedding is vocabulary-parallel. Outside the scope every layer computes as
 on one device.
+
+Under sequence parallelism (``parallel.ctx.seq_parallel()``) a layer is handed
+this rank's rows of the residual: ``split_input`` gathers them into the whole
+sequence for the rank's column products (the gradient reduce-scattered back
+to the rows), ``dense_joined`` and ``dense_columns`` hand back the rank's rows
+of the whole output columns (``seq_columns_to_rows``, an all-to-all, in place
+of the columns' all-gather), and ``embed`` the rank's rows of the lookup.
+``whole_input`` is the input of products of a tensor every rank holds whole
+(the MoE's dispatched tokens, a Mamba2 layer's input).
 """
 from __future__ import annotations
 
@@ -184,15 +193,26 @@ class _JoinedMM(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
-def split_input(x):
-    """The input of this model rank's ``dense_split`` products: an fp32 copy
-    of ``x``, whose gradient (the products' fp32 partials, summed over the
-    products and over the model ranks) is rounded once to ``x``'s type."""
+def whole_input(x):
+    """The input of this model rank's ``dense_split`` products of an ``x``
+    that every model rank holds whole: an fp32 copy of ``x``, whose gradient
+    (the products' fp32 partials, summed over the products and over the
+    model ranks) is rounded once to ``x``'s type."""
     return pctx.to_model(x.float())
 
 
+def split_input(x):
+    """The input of this model rank's ``dense_split`` products of the block's
+    input ``x``: ``whole_input(x)``, or under sequence parallelism, where
+    ``x`` is this rank's rows, the ranks' rows gathered into the whole
+    sequence in fp32, the gradient's fp32 partials reduce-scattered back to
+    the rows and rounded once (``parallel.ctx.seq_gather_f32``)."""
+    return pctx.seq_gather_f32(x) if pctx.seq_parallel() else whole_input(x)
+
+
 def split_mm(x, w):
-    """``x @ w`` on this rank's columns of ``w`` from ``split_input``'s ``x``."""
+    """``x @ w`` on this rank's columns of ``w`` from ``split_input``'s or
+    ``whole_input``'s ``x``."""
     return _SplitMM.apply(x, w)
 
 
@@ -203,7 +223,8 @@ def joined_mm(x, w, *, split: bool, join: bool = True):
 
 def dense_split(p, x, *, dtype=torch.bfloat16):
     """``dense`` on this model rank's output columns of ``p`` (a ``model``
-    shard) from ``split_input(x)``: each column is one device's."""
+    shard) from ``split_input(x)`` or ``whole_input(x)``: each column is one
+    device's."""
     y = split_mm(x, p["w"].to(dtype))
     if "b" in p:
         y = y + p["b"].to(dtype)
@@ -216,8 +237,14 @@ def dense_joined(p, x, *, dtype=torch.bfloat16):
     contraction (its heads, its share of ``d_ff``), gathered over the model
     ranks; ``p["w"]`` holds the whole contraction for this rank's block of the
     output columns where the layout splits ``d_model`` (the ranks then join
-    them), else for all of them. The bias (whole) is added after."""
-    y = joined_mm(x.to(dtype), p["w"].to(dtype), split=pctx.layout().d_model)
+    them), else for all of them. Under sequence parallelism the result is
+    this rank's rows of the whole columns: the ranks' column blocks turned
+    into rows by an all-to-all, or, where every rank computes all the
+    columns, its rows of them. The bias (whole) is added after."""
+    split, seq = pctx.layout().d_model, pctx.seq_parallel()
+    y = joined_mm(x.to(dtype), p["w"].to(dtype), split=split, join=not seq)
+    if seq:
+        y = pctx.seq_columns_to_rows(y) if split else pctx.seq_rows(y)
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
@@ -226,9 +253,11 @@ def dense_joined(p, x, *, dtype=torch.bfloat16):
 def dense_columns(p, x, *, dtype=torch.bfloat16):
     """``dense`` of an input ``x`` that every model rank holds whole, on this
     rank's block of the output columns (``p`` a ``model`` shard of them), the
-    ranks' blocks then joined: each column is one device's, and the input's
-    gradient is the ranks' fp32 partials summed and rounded once."""
-    return pctx.gather_from_model(dense_split(p, split_input(x), dtype=dtype), -1)
+    ranks' blocks then joined (under sequence parallelism: turned into this
+    rank's rows of the whole columns): each column is one device's, and the
+    input's gradient is the ranks' fp32 partials summed and rounded once."""
+    y = dense_split(p, whole_input(x), dtype=dtype)
+    return pctx.seq_columns_to_rows(y) if pctx.seq_parallel() else pctx.gather_from_model(y, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -326,18 +355,31 @@ def embed_init(gen, vocab: int, d: int):
     return {"table": truncated_normal(gen, (vocab, d), 1.0 / math.sqrt(d))}
 
 
-def embed(p, tokens, *, dtype=torch.bfloat16):
-    """The tokens' rows of the table. Where the layout splits the vocabulary
-    (the table a ``model`` shard of its rows), each model rank looks up the
-    tokens in its rows, zeros the others, and the ranks' rows are summed
-    (exactly: one rank's row is not zero)."""
+def _with_prefix(prefix, x):
+    return x if prefix is None else torch.cat([prefix.to(x.dtype), x], dim=1)
+
+
+def embed(p, tokens, *, dtype=torch.bfloat16, prefix=None, rows=False):
+    """The tokens' rows of the table, behind ``prefix`` (B, P, d) where given
+    (a VLM's precomputed embeddings, the same on every model rank). Where the
+    layout splits the vocabulary (the table a ``model`` shard of its rows),
+    each model rank looks up the tokens in its rows, zeros the others, and
+    the ranks' rows are summed (exactly: one rank's row is not zero). With
+    ``rows`` (sequence parallelism) the result is this model rank's rows of
+    the sequence: under the split vocabulary the sum is a reduce-scatter, the
+    prefix added by model rank 0 alone."""
     # gather first, cast after: same values as casting the table, without
     # touching the whole table on every call
     table = p["table"]
     lay = pctx.layout()
     if lay is None or not lay.vocab:
-        return table[tokens].to(dtype)
+        x = _with_prefix(prefix, table[tokens].to(dtype))
+        return pctx.seq_rows(x) if rows else x
     local = tokens.long() - pctx.model_index() * table.shape[0]
     own = ((local >= 0) & (local < table.shape[0]))[..., None]
-    rows = table[torch.where(own[..., 0], local, 0)]
-    return pctx.from_model(torch.where(own, rows, 0)).to(dtype)
+    looked = torch.where(own, table[torch.where(own[..., 0], local, 0)], 0)
+    if not rows:
+        return _with_prefix(prefix, pctx.from_model(looked).to(dtype))
+    if prefix is not None and pctx.model_index() != 0:
+        prefix = torch.zeros_like(prefix)
+    return pctx.seq_rows_of_sum(_with_prefix(prefix, looked.to(dtype)))

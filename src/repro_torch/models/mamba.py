@@ -125,7 +125,7 @@ def mamba_apply(params, x, cfg, *, state=None):
 
     if split:
         d_inner, H = d_inner // pctx.model_size(), H // pctx.model_size()
-        zxbcdt = layers.dense_split(params["in_proj"], layers.split_input(x), dtype=dt_c)
+        zxbcdt = layers.dense_split(params["in_proj"], layers.whole_input(x), dtype=dt_c)
     else:
         zxbcdt = layers.dense(params["in_proj"], x, dtype=dt_c)
     z, xc, Bc, Cc, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)

@@ -22,13 +22,31 @@ joined over ``model``, so that the router, the load-balance loss and the
 combine run alike on every model rank, as on one device. The dispatched
 tokens' gradient is the ranks' fp32 partials summed and rounded once: under
 EP by ``_Dispatch`` (or, in the scatter dispatch, ``to_model`` on an fp32
-copy), under TP within the experts by ``layers.split_input``.
+copy), under TP within the experts by ``layers.whole_input``.
+
+Under sequence parallelism (``parallel.ctx.seq_parallel()``) the block hands
+``moe_apply`` this model rank's rows (``_routed``): the router, a product of
+each token alone, runs on the rows, and its outputs and the tokens are
+gathered into the data rank's whole sequence before the top-k choices are
+queued, so that the dispatch groups, the capacity and the dropped choices are
+one device's (on a rank's rows alone they would be other groups of other
+sizes); the dispatch and the combine run as above, and each rank keeps its
+rows of the output. Under EP the tokens are gathered in fp32 and each rank's
+dispatch hands back its fp32 partial of their gradient, which the gather
+reduce-scatters to the rows (``parallel.ctx.seq_gather_f32``) in place of
+``_Dispatch``'s all-reduce. Under TP within the experts one device rounds the
+slots' gradient before the dispatch's backward, so the slots' fp32 partials
+are summed first: where the layout splits ``d_model``, by blocks of its
+columns (``_DispatchRows``: a reduce-scatter, then an all-to-all of the
+tokens' gradient into rows), else all-reduced (``layers.whole_input``) on
+tokens gathered alike, as in the scatter dispatch and without the split.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models import layers
@@ -79,15 +97,17 @@ def _expert_mode() -> str:
     return "none" if lay is None else lay.experts
 
 
-def _expert_ffn(p, xin, cfg, dt):
+def _expert_ffn(p, xin, cfg, dt, *, sum_grad=True):
     """xin: (..., E, C, d) -> (..., E, C, d) through each expert's gated MLP.
     Under EP ``p`` holds this rank's experts and ``xin`` their slots, and the
     ranks' outputs are joined; under TP within the experts the products are
-    ``layers.split_mm`` and ``layers.joined_mm``."""
+    ``layers.split_mm`` and ``layers.joined_mm``, and ``xin``'s gradient the
+    ranks' fp32 partials summed (``layers.whole_input``), or without
+    ``sum_grad`` (``xin`` fp32) this rank's, handed back to ``_DispatchRows``."""
     act = F.silu if cfg.mlp == "swiglu" else layers._gelu
     mode = _expert_mode()
     if mode == "tp":
-        xs = layers.split_input(xin)
+        xs = layers.whole_input(xin) if sum_grad else xin
         h = act(layers.split_mm(xs, p["wg"].to(dt))) * layers.split_mm(xs, p["wu"].to(dt))
         return layers.joined_mm(h, p["wd"].to(dt), split=pctx.layout().d_model)
     g = torch.einsum("...ecd,edf->...ecf", xin, p["wg"].to(dt))
@@ -97,20 +117,79 @@ def _expert_ffn(p, xin, cfg, dt):
 
 
 class _Dispatch(torch.autograd.Function):
-    """The dispatch einsum of this model rank's experts' slots: the tokens'
-    gradient is the ranks' partials taken in fp32, summed and rounded once."""
+    """The dispatch einsum of this model rank's experts' slots, in ``disp``'s
+    type: the tokens' gradient is the ranks' partials taken in fp32, summed
+    over ``group`` and rounded once to ``xg``'s type; with no group
+    (sequence parallelism, ``xg`` fp32) this rank's fp32 partial, for the
+    tokens' gather to reduce-scatter."""
 
     @staticmethod
     def forward(ctx, disp, xg, group):
         ctx.save_for_backward(disp)
         ctx.group, ctx.x_dtype = group, xg.dtype
-        return torch.einsum("ngec,ngd->necd", disp, xg)
+        return torch.einsum("ngec,ngd->necd", disp, xg.to(disp.dtype))
 
     @staticmethod
     def backward(ctx, dxin):
         disp, = ctx.saved_tensors
         part = torch.einsum("ngec,necd->ngd", disp.float(), dxin.float())
-        return None, pctx.all_reduce_f32(part, ctx.group).to(ctx.x_dtype), None
+        if ctx.group is not None:
+            part = pctx.all_reduce_f32(part, ctx.group)
+        return None, part.to(ctx.x_dtype), None
+
+
+class _DispatchRows(torch.autograd.Function):
+    """Under sequence parallelism with TP within the experts and ``d_model``
+    split: the dispatch einsum, in ``disp``'s type, of this model rank's rows
+    ``x`` (B, S/tp, d) gathered into the data rank's whole sequence, widened
+    to fp32 for the experts' split products. Its backward sums the slots'
+    fp32 partials over the ranks by blocks of ``d`` (a reduce-scatter: this
+    rank's block of columns), rounds them once to ``disp``'s type, as one
+    device rounds the slots' gradient, runs the dispatch's backward on that
+    block and turns the tokens' gradient columns into this rank's rows (an
+    all-to-all)."""
+
+    @staticmethod
+    def forward(ctx, disp, x, group):
+        ctx.save_for_backward(disp)
+        ctx.group, ctx.shape, ctx.x_dtype = group, x.shape, x.dtype
+        xg = pctx.all_gather(x, 1, group).reshape(*disp.shape[:2], -1)
+        return torch.einsum("ngec,ngd->necd", disp, xg.to(disp.dtype)).float()
+
+    @staticmethod
+    def backward(ctx, dxin):
+        disp, = ctx.saved_tensors
+        n = dist.get_world_size(ctx.group)
+        B, s, d = ctx.shape
+        blocks = dxin.float().reshape(*dxin.shape[:-1], n, d // n).movedim(-2, 0).contiguous()
+        mine = blocks.new_empty(blocks.shape[1:])
+        dist.reduce_scatter_tensor(mine, blocks.flatten(0, 1), group=ctx.group)
+        dxg = torch.einsum("ngec,necd->ngd", disp, mine.to(disp.dtype))
+        rows = pctx.columns_to_rows(dxg.reshape(B, s * n, d // n), ctx.group)
+        return None, rows.to(ctx.x_dtype), None
+
+
+def _routed(p, x, cfg):
+    """``_route``'s outputs for the tokens of ``x`` (B, S, d). Under sequence
+    parallelism ``x`` is this model rank's rows: the router runs on them, and
+    its outputs come back gathered, the data rank's whole sequence (the
+    module's docstring)."""
+    B, S, d = x.shape
+    w, idx, probs = _route(p, x.reshape(B * S, d), cfg)
+    if not pctx.seq_parallel():
+        return w, idx, probs
+    return (pctx.gather_from_model(t.reshape(B, S, -1), 1).reshape(-1, t.shape[-1])
+            for t in (w, idx, probs))
+
+
+def _tokens(x):
+    """The tokens of ``x`` (B, S, d) as (T, d); under sequence parallelism the
+    model ranks' rows gathered, under EP in fp32 (the dispatch hands back
+    their gradient's fp32 partials), else alike."""
+    if not pctx.seq_parallel():
+        return x.reshape(-1, x.shape[-1])
+    xs = pctx.seq_gather_f32(x) if _expert_mode() == "ep" else pctx.gather_from_model(x, 1)
+    return xs.reshape(-1, x.shape[-1])
 
 
 def _experts(cfg):
@@ -132,7 +211,9 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     other groups (a group of the reference's spans ranks), and raises
     ``ValueError`` (ROADMAP C27).
     """
+    seq = pctx.seq_parallel()
     B, S, d = x.shape
+    S *= pctx.model_size() if seq else 1              # the gathered sequence
     E, k = cfg.num_experts, cfg.experts_per_token
     dt = layers.to_dtype(cfg.compute_dtype)
     T = B * S
@@ -145,12 +226,10 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
                          f"a group of {group_size}; the global batch's groups would span "
                          "ranks")
     n_grp = T // g
-    x2 = x.reshape(T, d)
-    w, idx, probs = _route(p, x2, cfg)
+    w, idx, probs = _routed(p, x, cfg)
     aux = aux_load_balance_loss(probs, idx, E)
 
     cap = max(1, int(g * k / E * cfg.capacity_factor))
-    xg = x2.reshape(n_grp, g, d)
     wg_ = w.reshape(n_grp, g, k)
     ig = idx.reshape(n_grp, g, k)
 
@@ -167,12 +246,18 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     disp = slot.sum(dim=2)                                      # (n,g,E,cap)
     comb = (slot * wg_[..., None, None].to(dt)).sum(dim=2)
 
-    if _expert_mode() == "ep":                       # this rank's experts
-        xin = _Dispatch.apply(disp[:, :, _experts(cfg)], xg.to(dt), pctx.model_group())
+    mode = _expert_mode()
+    rows = seq and mode == "tp" and pctx.layout().d_model
+    if rows:                                         # fp32 slots, their gradient partial
+        xin = _DispatchRows.apply(disp, x, pctx.model_group())
+    elif mode == "ep":                               # this rank's experts
+        xg = _tokens(x).reshape(n_grp, g, d)
+        xin = _Dispatch.apply(disp[:, :, _experts(cfg)], xg if seq else xg.to(dt),
+                              None if seq else pctx.model_group())
     else:
-        xin = torch.einsum("ngec,ngd->necd", disp, xg.to(dt))
+        xin = torch.einsum("ngec,ngd->necd", disp, _tokens(x).reshape(n_grp, g, d).to(dt))
     xin = pctx.constrain(xin, "moe_tokens")                     # (n,E,cap,d)
-    yout = pctx.constrain(_expert_ffn(p, xin, cfg, dt), "moe_tokens")
+    yout = pctx.constrain(_expert_ffn(p, xin, cfg, dt, sum_grad=not rows), "moe_tokens")
     y = torch.einsum("ngec,necd->ngd", comb, yout)
     return y.reshape(B, S, d).to(x.dtype), aux
 
@@ -186,12 +271,14 @@ def moe_apply_scatter(p, x, cfg):
     if pctx.data_size() > 1:
         raise ValueError("moe scatter dispatch: one group of the global batch's tokens "
                          "spans the data ranks; use the einsum dispatch")
-    B, S, d = x.shape
+    seq = pctx.seq_parallel()
+    w, idx, probs = _routed(p, x, cfg)
+    x2 = _tokens(x)
+    B, d = x.shape[0], x.shape[-1]
+    T = x2.shape[0]
+    S = T // B
     E, k = cfg.num_experts, cfg.experts_per_token
     dt = layers.to_dtype(cfg.compute_dtype)
-    T = B * S
-    x2 = x.reshape(T, d)
-    w, idx, probs = _route(p, x2, cfg)
     aux = aux_load_balance_loss(probs, idx, E)
 
     cap = max(1, int(T * k / E * cfg.capacity_factor))
@@ -204,8 +291,9 @@ def moe_apply_scatter(p, x, cfg):
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     slot = flat_e * (cap + 1) + safe_pos
     # under EP each rank's buffer holds its experts' tokens: the gradient's
-    # fp32 partials summed over the ranks
-    xt = pctx.to_model(x2.float()) if _expert_mode() == "ep" else x2
+    # fp32 partials summed over the ranks (under sequence parallelism by the
+    # tokens' gather, x2 fp32)
+    xt = pctx.to_model(x2.float()) if _expert_mode() == "ep" and not seq else x2
     buf = torch.zeros((E * (cap + 1), d), dtype=dt, device=x.device).index_add(
         0, slot, xt[tok].to(dt)).reshape(E, cap + 1, d)
     yout = _expert_ffn(p, buf[_experts(cfg), :cap][None], cfg, dt)[0]  # (E,cap,d)
@@ -218,8 +306,10 @@ def moe_apply_scatter(p, x, cfg):
 
 
 def moe_apply(p, x, cfg, *, impl: str = "einsum", group_size: int = 512):
+    if impl not in ("einsum", "scatter"):
+        raise ValueError(f"unknown moe impl {impl!r}; known: 'einsum', 'scatter'")
     if impl == "einsum":
-        return moe_apply_einsum(p, x, cfg, group_size=group_size)
-    if impl == "scatter":
-        return moe_apply_scatter(p, x, cfg)
-    raise ValueError(f"unknown moe impl {impl!r}; known: 'einsum', 'scatter'")
+        y, aux = moe_apply_einsum(p, x, cfg, group_size=group_size)
+    else:
+        y, aux = moe_apply_scatter(p, x, cfg)
+    return pctx.seq_rows(y), aux      # this rank's rows under sequence parallelism

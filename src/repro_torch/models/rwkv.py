@@ -147,7 +147,7 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
                           for i in range(N_MIX)]
 
     def proj(xm, wm):
-        return layers.split_mm(layers.split_input(xm), wm) if split else xm @ wm
+        return layers.split_mm(layers.whole_input(xm), wm) if split else xm @ wm
 
     if split:
         H //= pctx.model_size()
@@ -198,10 +198,10 @@ def channel_mix(p, x, *, x_prev):
         kv = k @ p["wv"]["w"].float()
         y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
         return y.to(x.dtype), xf[:, -1]
-    k = torch.square(F.relu(layers.split_mm(layers.split_input(xk), p["wk"]["w"].float())))
+    k = torch.square(F.relu(layers.split_mm(layers.whole_input(xk), p["wk"]["w"].float())))
     kv = layers.joined_mm(k, p["wv"]["w"].float(), split=lay.d_model, join=False)
     if lay.d_model:
-        r = layers.split_mm(layers.split_input(xr), p["wr"]["w"].float())
+        r = layers.split_mm(layers.whole_input(xr), p["wr"]["w"].float())
         y = pctx.gather_from_model(torch.sigmoid(r) * kv, -1)
     else:
         y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv

@@ -273,11 +273,12 @@ def write_slot(cfg, cache, slot: int, one):
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(cfg, params, tokens, embeds):
-    x = layers.embed(params["emb"], tokens, dtype=layers.to_dtype(cfg.compute_dtype))
-    if embeds is not None:  # precomputed prefix embeddings (replicated over model)
-        x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    return x
+def _embed_inputs(cfg, params, tokens, embeds, rows=False):
+    """The token embeddings behind the precomputed prefix ``embeds`` (replicated
+    over model) where given; with ``rows``, this model rank's rows of them
+    (sequence parallelism)."""
+    return layers.embed(params["emb"], tokens, dtype=layers.to_dtype(cfg.compute_dtype),
+                        prefix=embeds, rows=rows)
 
 
 def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
@@ -288,10 +289,18 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
 
     ``remat`` (a key of ``REMAT_POLICIES``) applies when grad mode is on: each
     block then runs under ``torch.utils.checkpoint``.
+
+    Under sequence parallelism (``parallel.ctx.seq_parallel()``, which the
+    sharded train step turns on for the dense, vlm and moe families only) the
+    residual is this model rank's rows of the sequence (the VLM prefix
+    counted) from the embeddings on: the blocks' norms and residual adds and
+    the final norm run on the rows, ``positions`` stay whole (the attention
+    sees the gathered sequence), and the hidden state returned is the rows.
     """
     _require_ported(cfg)
-    x = _embed_inputs(cfg, params, tokens, embeds)
-    S = x.shape[1]
+    rows = pctx.seq_parallel()
+    x = _embed_inputs(cfg, params, tokens, embeds, rows=rows)
+    S = tokens.shape[1] + (0 if embeds is None else embeds.shape[1])
     positions = torch.arange(S, device=x.device)[None, :]
     aux = 0.0
     if cfg.family == "hybrid":

@@ -29,6 +29,26 @@ forward, the gradient summed over the ranks), ``from_model`` (the ranks' terms s
 forward, the gradient passed through), ``gather_from_model`` (the ranks'
 blocks joined, the gradient of this rank's block passed back), ``model_max``
 and ``model_index``.
+
+``model_parallel(mesh, layout, seq=True)`` also splits the residual by
+sequence (sequence parallelism, the reference's ``P(dp, "model", None)``
+residual): between blocks each model rank holds the rows ``[r*S/tp,
+(r+1)*S/tp)`` of its data rows (``seq_parallel()``). The
+operators the layers need for it work on the sequence dim (1) of a
+``(B, S, ...)`` tensor and, like the others, are the identity and launch
+nothing where ``seq_parallel()`` is false (outside the scope, or at one model
+rank): ``seq_rows`` (this rank's rows of a whole tensor; the rows' gradients
+all-gathered), ``seq_gather_f32`` (the ranks' rows gathered into the whole
+sequence in fp32; the gradient's fp32 partials reduce-scattered back to the
+rows and rounded once), ``seq_columns_to_rows`` (this rank's output columns
+of the whole sequence turned into the whole columns of its rows, an
+all-to-all; its backward the inverse all-to-all) and ``seq_rows_of_sum`` (the
+ranks' terms summed and this rank's rows kept, a reduce-scatter, for terms of
+which one rank's is not zero; the rows' gradients all-gathered). A sequence
+gathered alike on every rank, whose gradient every rank then computes whole,
+is ``gather_from_model(x, 1)``. None of them sums per-rank partial products
+in the forward (ROADMAP C32): each moves values, sums fp32 partials of an
+input's gradient, or (``seq_rows_of_sum``) adds zeros to a value.
 """
 from __future__ import annotations
 
@@ -143,17 +163,18 @@ def data_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
 # tensor parallelism over ``model``
 # ---------------------------------------------------------------------------
 
-# process-wide for the same reason as _DATA_MESH: (mesh, layout)
-_MODEL = (None, None)
+# process-wide for the same reason as _DATA_MESH: (mesh, layout, seq)
+_MODEL = (None, None, False)
 
 
 @contextmanager
-def model_parallel(mesh, layout):
+def model_parallel(mesh, layout, seq: bool = False):
     """Within the scope the model's products are partitioned over ``mesh``'s
     ``model`` axis as ``layout`` (a ``sharding.ModelLayout``) says, each rank
-    computing on its shards of the leaves."""
+    computing on its shards of the leaves; with ``seq`` the residual is also
+    split by sequence over ``model`` (``seq_parallel``)."""
     global _MODEL
-    prev, _MODEL = _MODEL, (mesh, layout)
+    prev, _MODEL = _MODEL, (mesh, layout, seq)
     try:
         yield
     finally:
@@ -265,3 +286,122 @@ def model_max(x):
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+def seq_parallel() -> bool:
+    """Whether the enclosing ``model_parallel`` scope splits the residual by
+    sequence over more than one model rank."""
+    return bool(_MODEL[2]) and model_group() is not None
+
+
+def _seq_first(x):
+    """``x`` (B, S, ...) as (S, B, ...), contiguous: a collective's dim 0."""
+    return x.transpose(0, 1).contiguous()
+
+
+class _SeqRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        return x.chunk(n, dim=1)[rank].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, 1, ctx.group), None
+
+
+class _SeqGatherF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.dtype = group, x.dtype
+        return all_gather(x, 1, group).float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = _seq_first(grad.float())
+        out = whole.new_empty((whole.shape[0] // dist.get_world_size(ctx.group),)
+                              + whole.shape[1:])
+        dist.reduce_scatter_tensor(out, whole, group=ctx.group)
+        return out.transpose(0, 1).to(ctx.dtype), None
+
+
+def columns_to_rows(y, group):
+    """(B, S, N/n) of this rank's columns -> (B, S/n, N) of its rows: the
+    all-to-all of ``seq_columns_to_rows``, with no gradient."""
+    n = dist.get_world_size(group)
+    B, S, c = y.shape
+    send = y.reshape(B, n, S // n, c).transpose(0, 1).contiguous()   # by row block
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)                 # by column block
+    return recv.permute(1, 2, 0, 3).reshape(B, S // n, n * c)
+
+
+def _rows_to_columns(x, group):
+    """The inverse of ``columns_to_rows``: (B, S/n, N) -> (B, S, N/n)."""
+    n = dist.get_world_size(group)
+    B, s, N = x.shape
+    send = x.reshape(B, s, n, N // n).permute(2, 0, 1, 3).contiguous()  # by column block
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)                    # by row block
+    return recv.transpose(0, 1).reshape(B, n * s, N // n)
+
+
+class _SeqColumnsToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return columns_to_rows(y, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rows_to_columns(grad, ctx.group), None
+
+
+class _SeqRowsOfSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        whole = _seq_first(x)
+        out = whole.new_empty((whole.shape[0] // dist.get_world_size(group),)
+                              + whole.shape[1:])
+        dist.reduce_scatter_tensor(out, whole, group=group)
+        return out.transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, 1, ctx.group), None
+
+
+def seq_rows(x):
+    """This model rank's rows (its block of ``S/tp``) of ``x``, which every rank holds
+    whole; the rows' gradients are all-gathered back into the whole one."""
+    return _SeqRows.apply(x, model_group()) if seq_parallel() else x
+
+
+def seq_gather_f32(x):
+    """The model ranks' rows of ``x`` gathered into the whole sequence (in
+    ``x``'s type, then widened to fp32: the same values); the gradient, each
+    rank's fp32 partial of the whole, is reduce-scattered back to the rows and
+    rounded once to ``x``'s type. It goes before products that each rank
+    computes on its own columns over the whole sequence."""
+    return _SeqGatherF32.apply(x, model_group()) if seq_parallel() else x
+
+
+def seq_columns_to_rows(y):
+    """``y`` (B, S, N/tp), this rank's output columns of the whole sequence, as
+    (B, S/tp, N), the whole columns of its rows: an all-to-all, whose backward
+    is the inverse all-to-all. Values move; nothing is summed."""
+    return _SeqColumnsToRows.apply(y, model_group()) if seq_parallel() else y
+
+
+def seq_rows_of_sum(x):
+    """The model ranks' ``x`` summed and this rank's rows kept (a
+    reduce-scatter), for terms of which at most one rank's is not zero at each
+    element, so that the sum is exact (the vocabulary-parallel lookup); the
+    rows' gradients are all-gathered back into the whole one."""
+    return _SeqRowsOfSum.apply(x, model_group()) if seq_parallel() else x

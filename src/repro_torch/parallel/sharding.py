@@ -74,6 +74,14 @@ gradients past the 1e-5 parity with one device (ROADMAP C32).
     applied before the join.
   * everything else (norms, the router, the residual, ``pos_dec``) computes
     whole, alike on every model rank.
+  * under sequence parallelism (``compute_layout(..., seq=True)``: the dense,
+    vlm and moe families, ``trainer.seq_parallel``) each rank applies the
+    norms, the bias of a pair's second product and a whole MLP (``d_ff``
+    unsplit) to its own rows of the residual, and the MoE router to its
+    rows' tokens, so its gradient of those replicated leaves is a partial
+    sum; the whole attention, the experts and an unsplit vocabulary still
+    run alike on the gathered sequence (``_compute_leaf``'s table, next to
+    each leaf's split).
 
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
@@ -325,8 +333,8 @@ class Segments:
         return torch.cat(parts, dim=dim)
 
 
-_COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|emb/table|unembed)"
-                           r"(?:/([wb]))?$")
+_COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|moe/router|emb/table|unembed"
+                           r"|attn_norm|mlp_norm|final_norm)(?:/(\w+))?$")
 # an RWKV6 layer's leaves that split by heads, and the dim of each
 _RWKV_HEADS = re.compile(r"tmix/(?:(w[rkvg]/w|decay_w2)|(decay|u|ln_x/scale|ln_x/bias))$")
 
@@ -370,23 +378,31 @@ def _ssm_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
     return None
 
 
-def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
-    """(spec over ``model``, gradient kind) of one leaf (``compute_layout``)."""
+def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int, seq: bool = False):
+    """(spec over ``model``, gradient kind) of one leaf (``compute_layout``);
+    ``seq``: under sequence parallelism."""
     ssm = _ssm_leaf(lay, cfg, path, ndim)
     if ssm is not None:
         return ssm
     m = _COMPUTE_LEAF.search(path)
     name, wb = (m.group(1), m.group(2)) if m else ("", None)
-    split = {"attn/wq": lay.heads, "attn/wk": lay.kv_heads, "attn/wv": lay.kv_heads,
-             "attn/wo": lay.heads and lay.d_model and wb == "w",
-             "mlp/wg": lay.d_ff, "mlp/wu": lay.d_ff,
-             "mlp/wd": lay.d_ff and lay.d_model and wb == "w",
-             "moe/wg": lay.experts != "none", "moe/wu": lay.experts != "none",
-             "moe/wd": lay.experts == "ep" or (lay.experts == "tp" and lay.d_model),
-             "emb/table": lay.vocab, "unembed": lay.vocab}.get(name, False)
+    # (split over model, applied to this rank's rows of the residual under
+    # sequence parallelism): the norms, the router, a whole MLP, the bias added
+    # after wd's or (where the heads split) wo's rows
+    split, rows = {
+        "attn/wq": (lay.heads, False), "attn/wk": (lay.kv_heads, False),
+        "attn/wv": (lay.kv_heads, False),
+        "attn/wo": (lay.heads and lay.d_model and wb == "w", lay.heads and wb == "b"),
+        "mlp/wg": (lay.d_ff, not lay.d_ff), "mlp/wu": (lay.d_ff, not lay.d_ff),
+        "mlp/wd": (lay.d_ff and lay.d_model and wb == "w", not lay.d_ff or wb == "b"),
+        "moe/wg": (lay.experts != "none", False), "moe/wu": (lay.experts != "none", False),
+        "moe/wd": (lay.experts == "ep" or (lay.experts == "tp" and lay.d_model), False),
+        "moe/router": (False, True), "attn_norm": (False, True), "mlp_norm": (False, True),
+        "final_norm": (False, True),
+        "emb/table": (lay.vocab, False), "unembed": (lay.vocab, False)}.get(name, (False, False))
     if not split:
         # wk / wv whole under split q heads: each rank uses its q heads' kv heads
-        partial = name in ("attn/wk", "attn/wv") and lay.heads
+        partial = (name in ("attn/wk", "attn/wv") and lay.heads) or (seq and rows)
         return (None,) * ndim, "sum" if partial else "same"
     # experts over EP and the embedding table by rows; the rest by columns
     dim = 0 if (name.startswith("moe/") and lay.experts == "ep") or name == "emb/table" \
@@ -394,18 +410,19 @@ def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
     return _columns(ndim, dim), "shard"
 
 
-def compute_layout(cfg, params_shape, mesh):
+def compute_layout(cfg, params_shape, mesh, *, seq: bool = False):
     """For each leaf of ``params_shape``, in leaf order, ``(spec, grad)``: the
     spec over ``model`` alone that the sharded step computes the leaf in (its
     data axes are gathered), from ``model_layout``, and how each model rank's
     gradient of it relates to the leaf's: ``"shard"`` (its block), ``"sum"``
     (a partial sum over the ranks) or ``"same"`` (the whole gradient, alike
-    on every rank)."""
+    on every rank). ``seq``: under sequence parallelism, where a replicated
+    leaf applied to the rank's rows has a ``"sum"`` gradient."""
     lay = model_layout(cfg, axis_sizes(mesh)["model"])
     out = []
     for path_elems, leaf in tree.leaves_with_paths(params_shape):
         path = "/".join(str(p) for p in path_elems if not isinstance(p, int))
-        out.append(_compute_leaf(lay, cfg, path, len(leaf.shape)))
+        out.append(_compute_leaf(lay, cfg, path, len(leaf.shape), seq))
     return out
 
 

@@ -8,6 +8,8 @@ reference's ``jax.checkpoint``-ed scan body keeps it.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -75,12 +77,15 @@ def _chunk_nll(hx, w_unembed, yx, ignore_index: int):
     return torch.sum((lse - gold) * valid), torch.sum(valid)
 
 
-def _chunk_nll_split(hx, w_unembed, yx, ignore_index: int):
+def _chunk_nll_split(hx, w_unembed, yx, ignore_index: int, dh_group):
     """``_chunk_nll`` with ``w_unembed`` this model rank's share of the
     vocabulary: the row max and the sum of exponentials are taken over the
     model ranks, and the label's logit on the rank that holds its row. The
-    hidden state's gradient is the ranks' fp32 partials summed, rounded once."""
-    logits = _LogitsMatmul.apply(hx, w_unembed, pctx.model_group())
+    hidden state's gradient is the ranks' fp32 partials summed over
+    ``dh_group``, rounded once; with no group (sequence parallelism) each
+    rank's fp32 partial is handed back unrounded, to ``gather_rows``'s
+    reduce-scatter."""
+    logits = _LogitsMatmul.apply(hx, w_unembed, dh_group)
     m = pctx.model_max(logits.amax(dim=-1))
     lse = m + torch.log(pctx.from_model(torch.exp(logits - m[:, None]).sum(dim=-1)))
     v_loc = w_unembed.shape[1]
@@ -90,6 +95,21 @@ def _chunk_nll_split(hx, w_unembed, yx, ignore_index: int):
     gold = pctx.from_model(torch.where(own, gold, 0.0))
     valid = (yx != ignore_index).float()
     return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def gather_rows(hidden):
+    """The whole sequence of the final hidden state from this model rank's
+    rows under sequence parallelism (``hidden`` itself otherwise): where the
+    layout splits the vocabulary, as the input of split products
+    (``layers.split_input``: fp32, the logits matmul's fp32 partials of its
+    gradient reduce-scattered back to the rows and rounded once); else
+    gathered alike, every rank computing the same loss and keeping its rows
+    of the gradient."""
+    if not pctx.seq_parallel():
+        return hidden
+    if pctx.layout().vocab:
+        return layers.split_input(hidden)
+    return pctx.gather_from_model(hidden, 1)
 
 
 def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
@@ -102,7 +122,8 @@ def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
     the layout of ``parallel.ctx.model_parallel`` splits the vocabulary
     (``w_unembed`` a ``model`` shard of its columns), the cross entropy is
     vocabulary-parallel (``_chunk_nll_split``); ``_LogitsMatmul``'s roundings
-    hold per share.
+    hold per share. Under sequence parallelism ``hidden`` is the whole
+    sequence of ``gather_rows``.
     """
     B, S, d = hidden.shape
     T = B * S
@@ -117,7 +138,10 @@ def chunked_cross_entropy(hidden, w_unembed, labels, *, chunk: int = 2048,
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     w_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     lay = pctx.layout()
-    body = _chunk_nll_split if lay is not None and lay.vocab else _chunk_nll
+    body = _chunk_nll
+    if lay is not None and lay.vocab:
+        body = partial(_chunk_nll_split,
+                       dh_group=None if pctx.seq_parallel() else pctx.model_group())
     for c0 in range(0, n * chunk, chunk):
         args = (h[c0:c0 + chunk], w_unembed, y[c0:c0 + chunk], ignore_index)
         if torch.is_grad_enabled():

@@ -29,6 +29,18 @@ heads), ``d_ff``, the vocabulary and the experts (or each expert's ``d_ff``)
 are partitioned over ``model``, as the reference's GSPMD step partitions
 them, in column-parallel products.
 
+Sequence parallelism (``seq_parallel``, its one owner): where the enclosing
+``parallel.ctx.activation_sharding`` scope's residual spec names ``model`` on
+the sequence dim (a train cell's plan, ``launch.specs._with_activation_ctx``),
+the family is one of ``SEQ_PARALLEL_FAMILIES`` and tp divides the sequence,
+each model rank holds, between blocks, its rows ``[r*S/tp, (r+1)*S/tp)`` of
+its data rows (``parallel.ctx.model_parallel(..., seq=True)``), and the
+replicated leaves it applies to those rows (the norms, a pair's bias, a whole
+MLP, the MoE router) bring back partial gradients
+(``sharding.compute_layout(..., seq=True)``).
+The arithmetic stays one device's. Elsewhere the residual is whole on every
+model rank, as the launcher's ``("data", None, None)`` says.
+
 ``"gathered"`` is the route of the first sharded step (ROADMAP C25), kept as
 the yardstick ``tests/test_torch_cost.py`` counts the partitioned route
 against and reached by no family: every parameter is gathered with
@@ -43,7 +55,6 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from functools import partial
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -55,15 +66,40 @@ from repro_torch.models.attention import knob_attention
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
-from repro_torch.train.loss import chunked_cross_entropy
+from repro_torch.train.loss import chunked_cross_entropy, gather_rows
 
 
 PARTITIONED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
+# the families whose residual the sharded step splits by sequence over model
+# (the hybrid and ssm token mixers and the encdec stacks keep it whole)
+SEQ_PARALLEL_FAMILIES = ("dense", "vlm", "moe")
 
 
 def route(cfg) -> str:
     """The sharded step's route for ``cfg``'s family (the module's docstring)."""
     return "partitioned" if cfg.family in PARTITIONED_FAMILIES else "gathered"
+
+
+def seq_parallel(cfg, mesh, S: int) -> bool:
+    """Whether the sharded step over ``mesh`` splits ``cfg``'s residual of
+    ``S`` positions (a VLM's prefix counted) by sequence over ``model``: the
+    enclosing activation scope's residual spec names ``model`` on the sequence
+    dim, the family is one of ``SEQ_PARALLEL_FAMILIES``, and tp divides ``S``
+    (where it does not, the residual stays whole, as ``sharding.sanitize_spec``
+    drops an axis that does not divide; the reference's XLA pads: ROADMAP
+    C33). At one model rank the split is the identity."""
+    act = pctx.current()
+    spec = act.get("residual") if act is not None else None
+    if spec is None or len(spec) < 2 or route(cfg) != "partitioned":
+        return False
+    names = spec[1] if isinstance(spec[1], tuple) else (spec[1],)
+    return ("model" in names and cfg.family in SEQ_PARALLEL_FAMILIES
+            and S % shd.axis_sizes(mesh)["model"] == 0)
+
+
+def seq_len(batch) -> int:
+    """The positions of a batch's residual: its tokens behind a VLM's prefix."""
+    return batch["tokens"].shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
 
 
 @dataclass(frozen=True)
@@ -133,6 +169,7 @@ def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
         hidden, aux = api.forward_hidden(cfg, params, mb, remat=run.remat,
                                          moe_impl=run.moe_impl, attn_fn=attn_fn,
                                          mode=mode)
+        hidden = gather_rows(hidden)
         s_tok = mb["labels"].shape[1]
         loss, _ = chunked_cross_entropy(
             hidden[:, -s_tok:], api.unembed_table(cfg, params), mb["labels"],
@@ -182,18 +219,20 @@ def shard_batch(batch, mesh, microbatches: int = 1):
     return {k: place(v) for k, v in batch.items()}
 
 
-def _partitioned_gather(cfg, params, mesh):
+def _partitioned_gather(cfg, params, mesh, seq: bool = False):
     """The plain tensors the partitioned loss computes with, one a leaf of
     ``params`` (DTensors): each leaf gathered over the data axes, in its
-    ``compute_layout`` over ``model``, its gradient coming back summed over
-    the data axes and, over ``model``, as the layout says. A ``Segments``
+    ``compute_layout`` over ``model`` (``seq``: under sequence parallelism),
+    its gradient coming back summed over the data axes and, over ``model``,
+    as the layout says. A ``Segments``
     entry (a Mamba2 layer's fused ``in_proj``) gathers the leaf over ``model``
     and keeps this rank's columns of it, a copy: the whole leaf is not held
     past the gather."""
     names, fsdp = shd.axis_names(mesh), shd.fsdp_axes(mesh)
     tp, rank = shd.axis_sizes(mesh)["model"], mesh.get_local_rank("model")
     out = []
-    for p, (spec, grad) in zip(tree.leaves(params), shd.compute_layout(cfg, params, mesh)):
+    for p, (spec, grad) in zip(tree.leaves(params),
+                               shd.compute_layout(cfg, params, mesh, seq=seq)):
         model = next((Shard(i) for i, e in enumerate(spec) if e == "model"), Replicate())
         model_grad = {"shard": model, "sum": Partial("sum"), "same": Replicate()}[grad]
         compute = tuple(model if n == "model" else Replicate() for n in names)
@@ -212,7 +251,10 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
     module's docstring)."""
     loss_fn = make_loss_fn(cfg, run, mode=mode)
     gather = None
-    scope = contextlib.nullcontext
+
+    def scope(seq):
+        return contextlib.nullcontext()
+
     if mesh is not None:
         if run.grad_compress != "none":
             raise NotImplementedError(f"grad_compress={run.grad_compress!r} has no "
@@ -220,25 +262,28 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
         fsdp = shd.fsdp_axes(mesh)
         batch_pl = shd.placements(shd.batch_spec(mesh), mesh)
         if route(cfg) == "partitioned":
-            scope = partial(pctx.model_parallel, mesh,
-                            shd.model_layout(cfg, shd.axis_sizes(mesh)["model"]))
+            layout = shd.model_layout(cfg, shd.axis_sizes(mesh)["model"])
 
-            def gather(params, leaves):
-                return _partitioned_gather(cfg, params, mesh)
+            def scope(seq):
+                return pctx.model_parallel(mesh, layout, seq=seq)
+
+            def gather(params, leaves, seq):
+                return _partitioned_gather(cfg, params, mesh, seq)
         else:
             # each data rank's loss is its share of the global loss (the ranks'
             # terms add up to it); every model rank of a data row computes the same
             grad_pl = tuple(Partial("sum") if a in fsdp else Replicate()
                             for a in shd.axis_names(mesh))
 
-            def gather(params, leaves):
+            def gather(params, leaves, seq):
                 return [p.full_tensor(grad_placements=grad_pl) for p in leaves]
 
     def grads_of(params, mb):
         leaves = tree.leaves(params)
-        full = leaves if gather is None else gather(params, leaves)
+        seq = mesh is not None and seq_parallel(cfg, mesh, seq_len(mb))
+        full = leaves if gather is None else gather(params, leaves, seq)
         # the backward's checkpointed recomputes run the model again: in the scope
-        with scope():
+        with scope(seq):
             total, metrics = loss_fn(tree.rebuild(params, full), mb)
             return torch.autograd.grad(total, leaves, allow_unused=True,
                                        materialize_grads=True), metrics

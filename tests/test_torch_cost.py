@@ -248,6 +248,12 @@ CELLS = [("olmo-1b", TRAIN), ("olmo-1b", PREFILL), ("olmo-1b", DECODE),
 # would be fewer than one MoE dispatch group (ROADMAP C27)
 SPLIT = [("olmo-1b", TRAIN), ("zamba2-7b", TRAIN), ("rwkv6-7b", TRAIN),
          ("whisper-large-v3", TRAIN)]
+# train cells also counted on the (2, 2) mesh without sequence parallelism
+# (the plan's seq_shard_acts off: the residual whole on each model rank, the
+# record "-unsplit"), beside the plan's own, which splits it; dbrx at 128
+# positions, so that a data rank's 4 x 128 rows make one MoE dispatch group
+DBRX_TRAIN = JShape("train_m", 128, 8, "train")
+SEQ = [("olmo-1b", TRAIN), ("dbrx-132b", DBRX_TRAIN)]
 PLAN_FIELDS = [f.name for f in dataclasses.fields(tspecs.CellPlan)]
 
 
@@ -275,14 +281,18 @@ PORT_CELLS_SCRIPT = textwrap.dedent("""
             if dims == [2, 2] and not job["split"]:
                 continue
             cfg = registry.get(job["arch"]).reduced()
-            routes = {"": partitioned}
-            if dims == [2, 2] and partitioned(cfg) == "partitioned":
-                routes["-gathered"] = lambda cfg: "gathered"       # C25's route, to compare
-            for suffix, route in routes.items():
+            # (suffix, route, plan): the port's; C25's route and, where asked,
+            # the residual whole on each model rank, to compare
+            runs = [("", partitioned, job["plan"])]
+            if dims == [2, 2] and partitioned(cfg) == "partitioned" and job["gathered"]:
+                runs.append(("-gathered", lambda cfg: "gathered", job["plan"]))
+            if dims == [2, 2] and job["unsplit"]:
+                runs.append(("-unsplit", partitioned, dict(job["plan"], seq_shard_acts=False)))
+            for suffix, route, plan in runs:
                 trainer.route = route
                 rec = dryrun.run_cell(cfg, ShapeConfig(*job["shape"]), mesh,
                                       "x".join(map(str, dims)),
-                                      plan=specs.CellPlan(**job["plan"]))
+                                      plan=specs.CellPlan(**plan))
                 out[f"{job['arch']}|{job['shape'][0]}|{rec['mesh']}{suffix}"] = rec
     trainer.route = partitioned
     print(json.dumps(out))
@@ -292,11 +302,12 @@ PORT_CELLS_SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def port_records():
     jobs = []
-    for arch, shape in CELLS:
+    for arch, shape in CELLS + [c for c in SEQ if c not in CELLS]:
         _, _, plan = _ref_plan(arch, shape)
         jobs.append(dict(arch=arch, shape=dataclasses.astuple(shape),
                          plan={f: getattr(plan, f) for f in PLAN_FIELDS},
-                         split=(arch, shape) in SPLIT))
+                         split=(arch, shape) in SPLIT + SEQ,
+                         gathered=(arch, shape) in SPLIT, unsplit=(arch, shape) in SEQ))
     return _run(PORT_CELLS_SCRIPT, json.dumps(jobs))
 
 
@@ -388,28 +399,76 @@ def test_a_2x2_mesh_halves_a_train_cell(port_records):
     with d) and stay whole, alike on every model rank, as the reference's
     rules leave them: its device does a quarter of the split products' FLOPs
     and half of the whole ones', within olmo-1b's allowance of 0.05 of one
-    device's. The inputs' gradients are summed over the model ranks
-    (all-reduces on the wire), and a device holds its model shard of each
-    parameter and of its gradient: its peak is below that of C25's route,
-    which gathers every parameter whole and computes each data rank's rows
-    at full width, half of one device's FLOPs a device (counted here too)."""
+    device's. Sums over the model ranks go on the wire (all-reduces: the
+    inputs' gradients; under the plan's sequence parallelism (A1c) those are
+    reduce-scattered, and the vocabulary-parallel loss's sums remain), and a
+    device holds its model shard of each parameter and of its gradient: its
+    peak is below that of C25's route, which gathers every parameter whole
+    and computes each data rank's rows at full width, half of one device's
+    FLOPs a device (counted here too). olmo-1b is held to this twice: its
+    record under the plan, which splits the residual by sequence, and its
+    ``-unsplit`` record, the residual whole on each model rank, the route
+    ``launch/train.py`` trains with."""
     for arch, shape in SPLIT:
         one = port_records[f"{arch}|{shape.name}|1x1"]
-        four = port_records[f"{arch}|{shape.name}|2x2"]
         c25 = port_records[f"{arch}|{shape.name}|2x2-gathered"]
-        assert four["collective_bytes_per_device"] > 0 == one["collective_bytes_per_device"]
-        assert four["collective_counts"]["count_all-gather"] > 0
-        assert four["collective_counts"]["count_all-reduce"] > 0
-        assert four["devices"] == 4
         assert c25["flops_per_device"] * 2 == one["flops_per_device"], arch
-        assert four["mem"]["peak_bytes"] < c25["mem"]["peak_bytes"], arch
-        f1, f4 = one["flops_per_device"], four["flops_per_device"]
-        top = 0.3 * f1
-        if arch == "rwkv6-7b":
-            whole = _rwkv_whole_flops(tregistry.get(arch).reduced(), shape.global_batch,
-                                      shape.seq_len)
-            top = (f1 - whole) / 4 + whole / 2 + 0.05 * f1
-        assert f1 / 4 < f4 <= top, (arch, f4 / f1)
+        for suffix in ("", "-unsplit") if (arch, shape) in SEQ else ("",):
+            four = port_records[f"{arch}|{shape.name}|2x2{suffix}"]
+            assert four["collective_bytes_per_device"] > 0 == one["collective_bytes_per_device"]
+            assert four["collective_counts"]["count_all-gather"] > 0
+            assert four["collective_counts"]["count_all-reduce"] > 0
+            assert four["devices"] == 4
+            assert four["mem"]["peak_bytes"] < c25["mem"]["peak_bytes"], (arch, suffix)
+            f1, f4 = one["flops_per_device"], four["flops_per_device"]
+            top = 0.3 * f1
+            if arch == "rwkv6-7b":
+                whole = _rwkv_whole_flops(tregistry.get(arch).reduced(), shape.global_batch,
+                                          shape.seq_len)
+                top = (f1 - whole) / 4 + whole / 2 + 0.05 * f1
+            assert f1 / 4 < f4 <= top, (arch, suffix, f4 / f1)
+
+
+def _moe_whole_flops(cfg, tokens):
+    """Dot FLOPs of a MoE train step's combine einsum (``ngec,necd->ngd``),
+    which every model rank runs alike on the gathered experts' outputs (the
+    dispatch, the experts and, under sequence parallelism, the router are
+    split): forward, again in the remat recompute, and backward for both
+    operands, at every layer, over ``tokens`` in groups of 512."""
+    g = min(512, tokens)
+    cap = max(1, int(g * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor))
+    return 4 * 2 * tokens * cfg.num_experts * cap * cfg.d_model * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch,shape", SEQ, ids=[a for a, _ in SEQ])
+def test_sequence_parallelism_cuts_a_train_cells_peak_and_wire(port_records, arch, shape):
+    """A1c: on the (2, 2) mesh the plan's ``seq_shard_acts`` splits the
+    residual by sequence over model. Against the same cell with the residual
+    whole on each model rank (the record of A1 and A1b): a lower peak (the
+    remat carries are a rank's rows), fewer bytes on the wire (a join's
+    all-to-all moves 1/tp of its columns' all-gather; dbrx's dispatch hands
+    its fp32 partials to a reduce-scatter, where they were all-reduced) and
+    all-to-alls where there were none; the same FLOPs within what the router
+    on a rank's rows saves, more than a quarter of one device's and, for
+    olmo-1b, at most 0.3 of them (``test_a_2x2_mesh_halves_a_train_cell``);
+    dbrx's combine einsum runs alike on every model rank
+    (``_moe_whole_flops``): a quarter of the rest, half of it, within olmo's
+    allowance of 0.05."""
+    one = port_records[f"{arch}|{shape.name}|1x1"]
+    sp = port_records[f"{arch}|{shape.name}|2x2"]
+    whole = port_records[f"{arch}|{shape.name}|2x2-unsplit"]
+    assert sp["plan"]["seq_shard_acts"] and not whole["plan"]["seq_shard_acts"]
+    assert sp["mem"]["peak_bytes"] < whole["mem"]["peak_bytes"]
+    assert sp["collective_bytes_per_device"] < whole["collective_bytes_per_device"]
+    assert sp["collective_counts"]["count_all-to-all"] > 0
+    assert whole["collective_counts"].get("count_all-to-all", 0) == 0
+    f1, f4 = one["flops_per_device"], sp["flops_per_device"]
+    assert f4 <= whole["flops_per_device"]
+    top = 0.3 * f1
+    if arch == "dbrx-132b":
+        moe = _moe_whole_flops(tregistry.get(arch).reduced(), shape.tokens)
+        top = (f1 - moe) / 4 + moe / 2 + 0.05 * f1
+    assert f1 / 4 < f4 <= top, (arch, f4 / f1)
 
 
 NO_COUNTERPART = {"xla_flops_per_device", "xla_bytes_per_device", "t_lower_s", "t_compile_s"}

@@ -380,9 +380,77 @@ def test_model_parallel_operators_outside_a_scope_are_the_identity():
     assert pctx.model_size() == 1 and pctx.layout() is None
     assert pctx.to_model(x) is x and pctx.from_model(x) is x
     assert pctx.gather_from_model(x, -1) is x
+    assert not pctx.seq_parallel()
+    for op in (pctx.seq_rows, pctx.seq_gather_f32, pctx.seq_columns_to_rows,
+               pctx.seq_rows_of_sum):
+        assert op(x) is x
     p = {"w": torch.ones(3, 4), "b": torch.ones(4)}
     assert torch.equal(tlayers.dense_split(p, x, dtype=torch.float32),
                        tlayers.dense(p, x, dtype=torch.float32))
+
+
+SEQ_OPS_SCRIPT = textwrap.dedent("""
+    import sys
+    import torch, torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    from repro_torch.parallel import ctx as pctx, sharding as shd
+
+    rank, store = int(sys.argv[1]), sys.argv[2]
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    g = torch.Generator().manual_seed(0)
+    B, S, N = 2, 6, 4
+    x, y, up = (torch.randn(B, S, N, generator=g) for _ in range(3))
+    ups = torch.randn(2, B, S, N, generator=g)       # each rank's own upstream gradient
+    rows, cols = slice(rank * 3, rank * 3 + 3), slice(rank * 2, rank * 2 + 2)
+
+    def grad(fn, t, upstream):
+        t = t.clone().requires_grad_(True)
+        out = fn(t)
+        out.backward(upstream)
+        return out.detach(), t.grad
+
+    lay = shd.model_layout(type("C", (), dict(num_heads=4, num_kv_heads=4, d_ff=8, d_model=N,
+                                              vocab_size=8, num_experts=0, family="dense"))(), 2)
+    with pctx.model_parallel(mesh, lay, seq=True):
+        assert pctx.seq_parallel()
+        out, gx = grad(pctx.seq_rows, x, up[:, rows])
+        assert torch.equal(out, x[:, rows]) and torch.equal(gx, up)     # rows; gathered back
+        out, gx = grad(pctx.seq_gather_f32, x[:, rows].bfloat16(), ups[rank])
+        assert out.dtype == torch.float32 and torch.equal(out, x.bfloat16().float())
+        assert torch.equal(gx, (ups[0] + ups[1])[:, rows].bfloat16())  # fp32 sum, rounded once
+        out, gy = grad(pctx.seq_columns_to_rows, y[..., cols], up[:, rows])
+        assert torch.equal(out, y[:, rows]) and torch.equal(gy, up[..., cols])
+        out, gx = grad(pctx.seq_rows_of_sum, torch.where(torch.arange(N) // 2 == rank, x, 0),
+                       up[:, rows])
+        assert torch.equal(out, x[:, rows]) and torch.equal(gx, up)
+        w = torch.randn(N, N, generator=g)
+        out, gx = grad(lambda t: layers.dense_columns({"w": w[:, cols]}, t, dtype=torch.float32),
+                       x, up[:, rows])
+        assert torch.allclose(out, (x @ w)[:, rows], atol=1e-6)        # rows of whole columns
+        assert torch.allclose(gx, up @ w.T, atol=1e-5)                 # whole, summed over ranks
+    assert not pctx.seq_parallel()
+    print("OK")
+""")
+
+
+def test_sequence_parallel_operators_on_two_gloo_ranks(tmp_path):
+    """``ctx.seq_rows``, ``seq_gather_f32``, ``seq_columns_to_rows``,
+    ``seq_rows_of_sum`` and ``layers.dense_columns`` inside ``model_parallel(...,
+    seq=True)`` on a (1, 2) mesh, forward and backward, against the whole
+    tensors each computes from: rows of 6 positions, 2 columns of 4 a rank."""
+    procs = [subprocess.Popen([sys.executable, "-c", SEQ_OPS_SCRIPT, str(r),
+                               str(tmp_path / "store")], cwd=ROOT, env=_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and out.strip() == "OK", err[-3000:]
 
 
 @pytest.mark.parametrize("heads,tp,rank,want", [
@@ -474,131 +542,59 @@ def test_compute_layout_at_a_tp_that_divides_some_dims(arch, tp, leaf, want):
     assert layout[("blocks",) + leaf] == want
 
 
+# the gradient kind of a leaf without and with sequence parallelism at full
+# width: (arch, tp, leaf, kind, kind under sequence parallelism). A leaf every
+# model rank holds whole and applies to its rows of the residual brings back
+# a partial sum; one applied alike to the gathered sequence stays "same"
+SEQ_LAYOUT_CASES = [
+    ("qwen2.5-3b", 16, ("blocks", "attn_norm", "scale"), "same", "sum"),
+    ("qwen2.5-3b", 16, ("final_norm", "scale"), "same", "sum"),
+    ("qwen2.5-3b", 16, ("blocks", "attn", "wk", "w"), "sum", "sum"),
+    ("qwen2.5-3b", 16, ("blocks", "attn", "wq", "b"), "shard", "shard"),
+    # 16 heads and d_ff 11008 over 3: the whole attention runs on the gathered
+    # sequence, the whole MLP on the rank's rows
+    ("qwen2.5-3b", 3, ("blocks", "attn", "wq", "w"), "same", "same"),
+    ("qwen2.5-3b", 3, ("blocks", "mlp", "wg", "w"), "same", "sum"),
+    ("qwen2.5-3b", 3, ("blocks", "mlp", "wd", "w"), "same", "sum"),
+    # 36 heads over 16; the odd vocabulary looked up whole and its rows kept
+    ("minicpm-2b", 16, ("blocks", "attn", "wo", "w"), "same", "same"),
+    ("minicpm-2b", 16, ("emb", "table"), "same", "same"),
+    # d_ff over 5, d_model not: every rank computes all of wd's columns
+    ("minicpm-2b", 5, ("blocks", "mlp", "wd", "w"), "same", "same"),
+    ("dbrx-132b", 16, ("blocks", "moe", "router"), "same", "sum"),
+    ("dbrx-132b", 16, ("blocks", "moe", "wg"), "shard", "shard"),
+    ("dbrx-132b", 16, ("final_norm", "bias"), "same", "sum"),
+]
+
+
+@pytest.mark.parametrize("arch,tp,leaf,kind,seq_kind", SEQ_LAYOUT_CASES,
+                         ids=[f"{a}-tp{t}-{'/'.join(l)}" for a, t, l, _, _ in SEQ_LAYOUT_CASES])
+def test_compute_layout_under_sequence_parallelism(arch, tp, leaf, kind, seq_kind):
+    cfg = tregistry.get(arch)
+    params = tapi.init(cfg, device="meta")
+    keys = [_port_key(p) for p, _ in tree.leaves_with_paths(params)]
+    mesh = FakeMesh(data=1, model=tp)
+    whole = dict(zip(keys, tshd.compute_layout(cfg, params, mesh)))
+    split = dict(zip(keys, tshd.compute_layout(cfg, params, mesh, seq=True)))
+    assert whole[leaf][1] == kind and split[leaf][1] == seq_kind
+    assert whole[leaf][0] == split[leaf][0]
+
+
 # ---------------------------------------------------------------------------
 # sharded training on 3 or 4 gloo ranks
 # ---------------------------------------------------------------------------
 
-WORKER = textwrap.dedent("""
-    import dataclasses, json, sys
-    import numpy as np, torch, torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
-    from repro_torch import tree
-    from repro_torch.ckpt.manager import CheckpointManager
-    from repro_torch.configs import registry
-    from repro_torch.data.synthetic import DataIterator
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.parallel import ctx as pctx, sharding as shd
-    from repro_torch.train import optimizer as opt, trainer
-
-    rank, world, job = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
-    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
-                            world_size=world)
-    cfg = dataclasses.replace(registry.get(job["arch"]).reduced(),
-                              **{"compute_dtype": "float32", **job.get("replace", {})})
-    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"))
-    run = trainer.RunConfig(microbatches=job["microbatches"], opt=opt.OptConfig(
-        lr=3e-4, warmup_steps=10, total_steps=job["steps"], schedule=cfg.lr_schedule))
-    state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device="cpu"), mesh)
-    sizes = shd.axis_sizes(mesh)
-    specs = tree.leaves(shd.param_specs(cfg, state.params, mesh), is_leaf=shd.is_spec)
-    for leaf in (state.params, state.opt_state.m, state.opt_state.v):
-        for p, spec in zip(tree.leaves(leaf), specs):
-            want = list(p.shape)
-            for i, e in enumerate(spec):
-                if e is not None:
-                    want[i] //= int(np.prod([sizes[a] for a in (e if isinstance(e, tuple) else (e,))]))
-            assert isinstance(p, DTensor) and list(p.to_local().shape) == want, (p.shape, spec)
-
-    step = trainer.make_train_step(cfg, run, mesh=mesh)
-    data = DataIterator(cfg, batch=job["batch"], seq=job["seq"])
-    metrics = []
-    # the partitioned route: no parameter gathered whole, and the inputs'
-    # gradients summed over model
-    gathers, reduces = [], []
-    full_tensor, all_reduce = DTensor.full_tensor, pctx.all_reduce_f32
-    DTensor.full_tensor = lambda self, **kw: gathers.append(1) or full_tensor(self, **kw)
-    pctx.all_reduce_f32 = lambda x, group: reduces.append(1) or all_reduce(x, group)
-    try:
-        for _ in range(job["steps"]):
-            batch = trainer.shard_batch({k: torch.from_numpy(v) for k, v in next(data).items()},
-                                        mesh, job["microbatches"])
-            state, m = step(state, batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-    finally:
-        DTensor.full_tensor, pctx.all_reduce_f32 = full_tensor, all_reduce
-    assert trainer.route(cfg) == "partitioned" and not gathers
-    assert len(reduces) > 0
-    # copies: a replicated leaf's full_tensor is its local tensor, which a later
-    # step updates in place
-    full = [p.full_tensor().detach().numpy().copy() for p in tree.leaves(state.params)]
-
-    out = {"metrics": metrics, "model_reduces": len(reduces)}
-    if cfg.family == "moe" and job["mesh"][0] > 1:
-        # a rank's rows short of a dispatch group are refused
-        small = trainer.shard_batch({k: torch.from_numpy(v[:, :16]) for k, v in
-                                     next(DataIterator(cfg, batch=4, seq=16)).items()}, mesh)
-        try:
-            step(state, small)
-            out["moe_small_batch"] = "trained"
-        except ValueError as e:
-            out["moe_small_batch"] = str(e)
-    elif cfg.family == "moe":
-        # the scatter dispatch's loss on the partitioned experts, and on one device
-        srun = dataclasses.replace(run, moe_impl="scatter")
-        batch = {k: torch.from_numpy(v) for k, v in next(data).items()}
-        params = [p.full_tensor().detach() for p in tree.leaves(state.params)]
-        one = trainer.make_loss_fn(cfg, srun)(tree.rebuild(state.params, params), batch)
-        loss = trainer.make_train_step(cfg, srun, mesh=mesh)(
-            state, trainer.shard_batch(batch, mesh))[1]["loss"]
-        out["scatter_loss"], out["scatter_loss_one"] = float(loss), float(one[1]["loss"])
-    elif world == 4:
-        # constrain: a DTensor is redistributed to its kind's placements
-        x = distribute_tensor(torch.arange(48.0).reshape(4, 3, 4), mesh,
-                              (Replicate(), Replicate()))
-        with pctx.activation_sharding(residual=("data", None, "model")):
-            y = pctx.constrain(x)
-        assert tuple(y.placements) == (Shard(0), Shard(2)), y.placements
-        assert torch.equal(y.full_tensor(), x.full_tensor())
-
-        # elastic restore: saved under 2 x 2, restored under 4 x 1
-        ck = CheckpointManager(job["ckpt"], async_save=False, writer=rank == 0)
-        w = torch.arange(64 * 32, dtype=torch.float32).reshape(64, 32)
-        wa = distribute_tensor(w, mesh, shd.placements(("data", "model"), mesh))
-        ck.save(job["steps"], {"state": state, "w": wa})
-        dist.barrier()
-        mesh_b = make_mesh((4, 1), ("data", "model"))
-        target = {"state": trainer.shard_state(
-                      cfg, trainer.init_state(cfg, run, 1, device="cpu"), mesh_b),
-                  "w": distribute_tensor(torch.zeros(64, 32), mesh_b,
-                                         shd.placements(("model", "data"), mesh_b))}
-        restored = ck.restore(job["steps"], target)
-        assert torch.equal(restored["w"].full_tensor(), w)
-        assert restored["w"].device_mesh is mesh_b
-        assert tuple(restored["w"].placements) == (Shard(1), Shard(0))
-        for a, b, t in zip(tree.leaves(restored["state"]), tree.leaves(state),
-                           tree.leaves(target["state"])):
-            if isinstance(a, DTensor):
-                assert a.device_mesh is mesh_b and a.placements == t.placements
-                assert a.requires_grad == t.requires_grad
-                assert torch.equal(a.full_tensor(), b.full_tensor())
-            else:
-                assert torch.equal(a, b)
-        out["elastic"] = "ok"
-    if rank == 0:
-        np.savez(job["out"] + ".npz", *full)
-        with open(job["out"] + ".json", "w") as f:
-            json.dump(out, f)
-    dist.destroy_process_group()
-""")
+# the rank worker (``tests/torch_sharded_worker.py``): each rank asserts its
+# local shapes against the specs and the partitioned route, and records what
+# the checks below read
+WORKER = Path(__file__).resolve().parent / "torch_sharded_worker.py"
 
 
 def _run_ranks(tmp_path, job, n=4):
     """Runs ``WORKER`` on ``n`` gloo ranks; returns rank 0's output."""
     job = dict(job, store=str(tmp_path / "store"), out=str(tmp_path / "out"),
                ckpt=str(tmp_path / "ckpt"))
-    script = tmp_path / "worker.py"
-    script.write_text(WORKER)
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(n), json.dumps(job)],
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(n), json.dumps(job)],
                               cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(n)]
     try:
@@ -614,7 +610,11 @@ def _run_ranks(tmp_path, job, n=4):
     return out
 
 
-def _single_device(arch, batch, seq, steps, microbatches, replace=None):
+def _single_device(arch, batch, seq, steps, microbatches, replace=None, moe_groups=None):
+    """The same steps on one device: (metrics, parameters); each MoE layer's
+    routing groups appended to ``moe_groups`` where given (the worker's
+    ``Recorder``)."""
+    from torch_sharded_worker import Recorder
     cfg = dataclasses.replace(tregistry.get(arch).reduced(),
                               **{"compute_dtype": "float32", **(replace or {})})
     run = ttrainer.RunConfig(microbatches=microbatches, opt=topt.OptConfig(
@@ -623,9 +623,12 @@ def _single_device(arch, batch, seq, steps, microbatches, replace=None):
     step = ttrainer.make_train_step(cfg, run)
     data = DataIterator(cfg, batch=batch, seq=seq)
     metrics = []
-    for _ in range(steps):
-        state, m = step(state, {k: torch.from_numpy(v) for k, v in next(data).items()})
-        metrics.append({k: float(v) for k, v in m.items()})
+    with Recorder(cfg) as rec:
+        for _ in range(steps):
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in next(data).items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+    if moe_groups is not None:
+        moe_groups.extend(rec.groups)
     return metrics, [p.detach().numpy() for p in tree.leaves(state.params)]
 
 
@@ -645,7 +648,16 @@ def _single_device(arch, batch, seq, steps, microbatches, replace=None):
 # product's), at ``tol``: its largest relative differences from one device
 # were 3.1e-4 on the gradient norms, 1.4e-5 on the losses, none on the first
 # loss, and its largest parameter difference 1.8e-4 (3 Adam steps at lr <=
-# 3e-5 bound that last one whatever the gradients), so 1e-3
+# 3e-5 bound that last one whatever the gradients), so 1e-3.
+# The "-sp" jobs run each step inside a train cell's activation scope, whose
+# residual spec ("data", "model", None) splits the residual by sequence over
+# model (sequence parallelism) where tp divides the sequence: olmo in 2
+# microbatches on 2 x 2; qwen on (1, 3) at 18 positions and at 16, which 3
+# does not divide (the residual whole); dbrx on 2 x 2, each data rank's
+# 2 x 256 rows one dispatch group, gathered from its model ranks' rows; grok
+# on (1, 4), TP within the experts, and its bf16 job; pixtral (vlm) on 2 x 2,
+# its 8-position prefix and 16 tokens split 12 / 12.
+SP = ["data", "model", None]
 JOBS = {"olmo-1b": dict(arch="olmo-1b", mesh=[2, 2], batch=8, seq=16, steps=3,
                         microbatches=2),
         "dbrx-132b": dict(arch="dbrx-132b", mesh=[2, 2], batch=4, seq=256, steps=3,
@@ -661,15 +673,34 @@ JOBS = {"olmo-1b": dict(arch="olmo-1b", mesh=[2, 2], batch=8, seq=16, steps=3,
                                 microbatches=1, replace={"num_experts": 2, "d_ff": 96}),
         "grok-1-314b-bf16": dict(arch="grok-1-314b", mesh=[1, 4], batch=4, seq=256, steps=3,
                                  microbatches=1, tol=1e-3,
-                                 replace={"num_experts": 2, "compute_dtype": "bfloat16"})}
+                                 replace={"num_experts": 2, "compute_dtype": "bfloat16"}),
+        "olmo-1b-sp": dict(arch="olmo-1b", mesh=[2, 2], batch=8, seq=16, steps=3,
+                           microbatches=2, residual=SP),
+        "qwen2.5-3b-tp3-sp": dict(arch="qwen2.5-3b", mesh=[1, 3], batch=4, seq=18, steps=3,
+                                  microbatches=1, residual=SP,
+                                  replace={"num_heads": 12, "num_kv_heads": 4, "d_ff": 96}),
+        "qwen2.5-3b-tp3-sp16": dict(arch="qwen2.5-3b", mesh=[1, 3], batch=4, seq=16, steps=3,
+                                    microbatches=1, residual=SP,
+                                    replace={"num_heads": 12, "num_kv_heads": 4, "d_ff": 96}),
+        "dbrx-132b-sp": dict(arch="dbrx-132b", mesh=[2, 2], batch=4, seq=256, steps=3,
+                             microbatches=1, residual=SP),
+        "grok-1-314b-sp": dict(arch="grok-1-314b", mesh=[1, 4], batch=4, seq=256, steps=3,
+                               microbatches=1, residual=SP, replace={"num_experts": 2}),
+        "grok-1-314b-bf16-sp": dict(arch="grok-1-314b", mesh=[1, 4], batch=4, seq=256,
+                                    steps=3, microbatches=1, tol=1e-3, residual=SP,
+                                    replace={"num_experts": 2, "compute_dtype": "bfloat16"}),
+        "pixtral-12b-sp": dict(arch="pixtral-12b", mesh=[2, 2], batch=4, seq=16, steps=3,
+                               microbatches=1, residual=SP)}
 
 
 @pytest.fixture(scope="module", params=list(JOBS))
 def sharded_run(request, tmp_path_factory):
     job = JOBS[request.param]
     out = _run_ranks(tmp_path_factory.mktemp(request.param), job, n=int(np.prod(job["mesh"])))
+    out["one_device_moe_groups"] = []
     want = _single_device(job["arch"], job["batch"], job["seq"], job["steps"],
-                          job["microbatches"], job.get("replace"))
+                          job["microbatches"], job.get("replace"),
+                          moe_groups=out["one_device_moe_groups"])
     return request.param, out, want
 
 
@@ -721,17 +752,64 @@ def test_sharded_run_checks_its_own_invariants(sharded_run):
     partitioned route; the dense runs also the DTensor constrain and the
     elastic restore under 4 x 1; the moe run over two data ranks refuses a
     rank's rows short of a dispatch group (ROADMAP C27); over one data rank
-    the moe run's scatter dispatch is held to one device's."""
+    the moe run's scatter dispatch is held to one device's. The inputs'
+    gradients are summed over model: all-reduced (``all_reduce_f32``) in the
+    runs with the residual whole, reduce-scattered back to the rows
+    (``seq_gather_f32``) where it is split by sequence."""
     name, out, _ = sharded_run
     tol = JOBS[name].get("tol", TOL)
-    assert out["model_reduces"] > 0
-    if name == "dbrx-132b":
+    if out["seq_parallel"]:
+        assert out["seq_scatters"] > 0
+    else:
+        assert out["model_reduces"] > 0 and out["seq_scatters"] == 0
+    if JOBS[name]["arch"] == "dbrx-132b":
         assert "fewer than a group of 512" in out["moe_small_batch"]
     elif JOBS[name]["arch"] == "grok-1-314b":
         assert out["scatter_loss"] == pytest.approx(out["scatter_loss_one"], rel=tol, abs=tol)
     else:
         # the 4-rank dense runs restore under 4 x 1
         assert out.get("elastic") == ("ok" if np.prod(JOBS[name]["mesh"]) == 4 else None)
+
+
+def test_the_residual_is_split_by_sequence_where_tp_divides_it(sharded_run):
+    """Under a train cell's residual spec (the "-sp" jobs) each block's input
+    is the model rank's ``S/tp`` rows (``S`` the tokens behind a VLM's prefix)
+    where ``trainer.seq_parallel`` holds, and whole elsewhere and in the jobs
+    without the spec; no all-reduce of a 2-d or larger tensor is issued in
+    the forward of a split run (no sum of per-rank partial products, C32: its
+    sums over model are reduce-scatters of fp32 gradients). Every MoE job's
+    routing is one device's: data rank 0's first dispatch group holds one
+    device's first group's tokens, with its capacity and its dropped choices,
+    at every MoE layer's call (the forwards and the remat recomputes)."""
+    name, out, _ = sharded_run
+    job = JOBS[name]
+    cfg = tregistry.get(job["arch"]).reduced()
+    S = job["seq"] + (cfg.frontend_len if cfg.family == "vlm" else 0)
+    tp = job["mesh"][1]
+    split = "residual" in job and S % tp == 0
+    assert out["seq_parallel"] == split
+    assert out["block_rows"] == [S // tp if split else S]
+    if split:
+        assert out["forward_reduces"] == []
+    if cfg.family == "moe":
+        one = out["one_device_moe_groups"]
+        assert len(out["moe_groups"]) == len(one) == 2 * cfg.num_layers * job["steps"]
+        for (t, g, dropped), (t1, g1, dropped1) in zip(out["moe_groups"], one):
+            assert (g, dropped) == (g1, dropped1) and t == t1 // job["mesh"][0]
+
+
+def test_the_sp_jobs_split_what_their_names_say():
+    """The "-sp" jobs' layouts: dbrx under EP, grok TP within its experts, qwen
+    at tp 3 splitting its q heads and ``d_ff`` but not ``d_model``."""
+    def lay(name):
+        job = JOBS[name]
+        cfg = dataclasses.replace(tregistry.get(job["arch"]).reduced(), **job.get("replace", {}))
+        return tshd.model_layout(cfg, job["mesh"][1])
+
+    assert lay("dbrx-132b-sp").experts == "ep" and lay("grok-1-314b-sp").experts == "tp"
+    tp3 = lay("qwen2.5-3b-tp3-sp")
+    assert tp3.heads and not tp3.kv_heads and tp3.d_ff and not tp3.d_model and not tp3.vocab
+    assert sum("residual" in j for j in JOBS.values()) == 7
 
 
 # ---------------------------------------------------------------------------

@@ -130,9 +130,13 @@ Phases, each printing one JSON line:
            1500 and 64 x 1500). Each takes the partitioned route, its losses
            and gradient norms equal the unsharded trainer's bit for bit, and
            its forward-kernel launches a step are asserted on both routes
-           (2 a use of an attention: the forward and its recompute); each
-           prints its depth cut, route, losses, norms, step ms, the steps'
-           peak and one more sharded step under the profiler
+           (2 a use of an attention: the forward and its recompute); then
+           the same 3 sharded steps inside the train cell's activation scope
+           (trainer.seq_split holds for each stack, the encoder's frames
+           too), bit for bit with the unsharded trainer and with the same
+           launches a step; each prints its depth cut, route, losses, norms,
+           step ms, the steps' peak of every run and one more sharded step
+           under the profiler
   cost     the eager cost counter (utils/cost.py) against the card: four steps
            at full width, each counted twice, once as it runs on the card and
            once on meta tensors of the same shapes (api.init(cfg,
@@ -2274,9 +2278,10 @@ def layer_count(cfg) -> int:
 
 
 def parallel_family(spec, mesh, n):
-    """``spec``'s family through the sharded step on the (1, 1) ``mesh`` and
-    through the unsharded trainer, ``n`` steps each from the same seed and
-    batches; returns the run's line and its forward-kernel launches."""
+    """``spec``'s family through the unsharded trainer, the sharded step on the
+    (1, 1) ``mesh``, and the sharded step again inside a train cell's
+    activation scope (``SP_RESIDUAL``), ``n`` steps each from the same seed
+    and batches; returns the sharded run's forward-kernel launches."""
     full = registry.get(spec["arch"])
     cfg = dataclasses.replace(full, **spec["cut"])
     B, S = spec["batch"], spec["seq"]
@@ -2285,9 +2290,12 @@ def parallel_family(spec, mesh, n):
     data = DataIterator(cfg, batch=B, seq=S)
     batches = [{k: torch.from_numpy(v).to(DEV) for k, v in next(data).items()}
                for _ in range(n)]
-    logs, launches, n_params, profile = {"unsharded": [], "sharded": []}, 0, 0, None
+    logs = {"unsharded": [], "sharded": [], "sharded_train_cell_scope": []}
+    launches, n_params, profile = 0, 0, None
+    with pctx.activation_sharding(residual=SP_RESIDUAL):
+        seq = trainer.seq_split(cfg, mesh, batches[0])
     for name, log in logs.items():
-        sharded = name == "sharded"
+        sharded, scoped = name != "unsharded", name == "sharded_train_cell_scope"
         state = trainer.init_state(cfg, run, 0, device=DEV)
         n_params = sum(p.numel() for p in tree.leaves(state.params))
         if sharded:
@@ -2295,9 +2303,11 @@ def parallel_family(spec, mesh, n):
         step_fn = recorded_steps(trainer.make_train_step, log)(
             cfg, run, **({"mesh": mesh} if sharded else {}))
         reset_counts()
-        for batch in batches:
-            state, _ = step_fn(state, trainer.shard_batch(batch, mesh) if sharded else batch)
-        if sharded:
+        with (pctx.activation_sharding(residual=SP_RESIDUAL) if scoped
+              else contextlib.nullcontext()):
+            for batch in batches:
+                state, _ = step_fn(state, trainer.shard_batch(batch, mesh) if sharded else batch)
+        if name == "sharded":
             launches = read_counts()["flash_fwd"]
             # two more steps, the second under the profiler: where a step's time goes
             batch = trainer.shard_batch(batches[0], mesh)
@@ -2316,7 +2326,9 @@ def parallel_family(spec, mesh, n):
            "params": n_params, "batch": B, "seq": S,
            "frames": cfg.frontend_len if cfg.family == "encdec" else None,
            "steps": n, "remat": run.remat, "compute_dtype": cfg.compute_dtype,
-           "launches": launches, "flash_fwd_launches_per_step_want": want[0]}
+           "launches": launches, "flash_fwd_launches_per_step_want": want[0],
+           "train_cell_scope": {"residual": SP_RESIDUAL, "seq_parallel": seq[0],
+                                "seq_parallel_stacks": seq[1]}}
     for name, log in logs.items():
         row[name] = {"losses": [x["loss"] for x in log],
                      "grad_norms": [x["grad_norm"] for x in log],
@@ -2335,11 +2347,18 @@ def parallel_family(spec, mesh, n):
     if any(a[k] != b[k] for a, b in zip(sharded, plain) for k in ("loss", "grad_norm")):
         raise AssertionError(f"parallel: {cfg.name}'s (1, 1) partitioned route is not the "
                              f"unsharded trainer bit for bit: {row}")
+    scoped = logs["sharded_train_cell_scope"]
+    if (not seq[0] or not all(seq[1].values()) or len(scoped) != n
+            or any(a[k] != b[k] for a, b in zip(scoped, plain) for k in ("loss", "grad_norm"))):
+        raise AssertionError(f"parallel: inside the train cell's scope (seq_split {seq}) "
+                             f"{cfg.name}'s (1, 1) step is not the unsharded trainer bit for "
+                             f"bit: {row}")
     if ([x["launches"] for x in sharded] != want or [x["launches"] for x in plain] != want
-            or launches != sum(want)):
+            or [x["launches"] for x in scoped] != want or launches != sum(want)):
         raise AssertionError(f"parallel: {cfg.name}'s forward-kernel launches a step "
                              f"{row['sharded']['flash_fwd_launches_per_step']} sharded, "
                              f"{row['unsharded']['flash_fwd_launches_per_step']} unsharded, "
+                             f"{[x['launches'] for x in scoped]} in the train cell's scope, "
                              f"{launches} in all; want {want}")
     return launches
 

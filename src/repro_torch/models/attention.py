@@ -290,13 +290,15 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     ``positions``, the kernel on the rank's heads over the whole sequence,
     and ``wo`` hands back the rank's rows (``layers.dense_joined``). Where
     the q heads do not split, the whole attention runs alike on every rank on
-    the gathered sequence, and each rank keeps its rows of the output.
+    the gathered sequence (``parallel.ctx.seq_gather``), and each rank keeps
+    its rows of the output, the cross-attention's too. A given ``cross_kv``
+    is the whole encoder sequence's.
     """
     hd = cfg.head_dim
     split, H, kv = _rank_heads(p, cfg)
     rows = pctx.seq_parallel() and not split
     if rows:
-        x = pctx.gather_from_model(x, 1)
+        x = pctx.seq_gather(x)
     dt = layers.to_dtype(cfg.compute_dtype)
     causal = cfg.causal if causal is None else causal
     proj, out_proj = layers.dense, layers.dense
@@ -310,7 +312,8 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         if use_rope:
             q = layers.rope(q, positions, cfg.rope_theta)
         o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
-        return out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt), None
+        out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
+        return (pctx.seq_rows(out) if rows else out), None
 
     k, v = _project_kv(kv, x, cfg, proj)
     if use_rope:

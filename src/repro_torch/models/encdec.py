@@ -14,6 +14,14 @@ cross-attention's K/V project the encoder output on the kv heads of the
 rank's q heads (``attention.project_cross_kv``), and ``pos_dec`` and the norms
 run whole on every rank.
 
+Under sequence parallelism each stack splits by its own length: the encoder
+runs inside ``parallel.ctx.stack("encoder")`` (its checkpointed blocks too),
+where ``parallel.ctx.seq_parallel()`` answers for the frames. A split stack
+holds this model rank's rows between blocks, as ``apply_lm``'s residual: the
+encoder takes its rows of the frames and its output is gathered once a step,
+alike on every rank, before the decoder's blocks project it; the decoder
+embeds its rows, ``pos_dec``'s rows taken from the whole sequence's.
+
 The cache is ``{"k", "v": (dec_layers, B, S_max, Hkv, hd), "cross_k",
 "cross_v": (dec_layers, B, S_enc, Hkv, hd), "idx": int}``: ``idx`` is a host
 int, and ``decode_encdec`` writes the new K/V rows into ``k`` / ``v`` in place
@@ -71,23 +79,27 @@ def _mlp(cfg, blk, h):
 
 
 def _enc_block(blk, h, cfg, *, positions, attn_fn=None, mode=None):
-    a = layers.apply_norm(cfg.norm, blk["attn_norm"], h)
-    a, _ = attention.attn_apply(blk["attn"], a, cfg, positions=positions,
-                                attn_fn=attn_fn, use_rope=False, causal=False, mode=mode)
-    return _mlp(cfg, blk, h + a)
+    with pctx.stack("encoder"):
+        a = layers.apply_norm(cfg.norm, blk["attn_norm"], h)
+        a, _ = attention.attn_apply(blk["attn"], a, cfg, positions=positions,
+                                    attn_fn=attn_fn, use_rope=False, causal=False,
+                                    mode=mode)
+        return _mlp(cfg, blk, h + a)
 
 
 def encode(cfg, params, frames, *, attn_fn=None, remat="full", mode=None):
     """frames: (B, S_enc, d) precomputed frame embeddings (stub front end).
     The whisper encoder attends bidirectionally (non-causal); an ``attn_fn`` is
-    called with ``causal=False`` too."""
-    x = frames.to(layers.to_dtype(cfg.compute_dtype))
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    block = _checkpointed(partial(_enc_block, cfg=cfg, positions=positions,
-                                  attn_fn=attn_fn, mode=mode), remat)
-    for blk in params["enc_blocks"]:
-        x = pctx.constrain(block(blk, x))
-    return layers.apply_norm(cfg.norm, params["enc_norm"], x)
+    called with ``causal=False`` too. Returns the whole sequence's output,
+    under sequence parallelism too (the module's docstring)."""
+    with pctx.stack("encoder"):
+        x = pctx.seq_rows(frames.to(layers.to_dtype(cfg.compute_dtype)))
+        positions = torch.arange(frames.shape[1], device=x.device)[None, :]
+        block = _checkpointed(partial(_enc_block, cfg=cfg, positions=positions,
+                                      attn_fn=attn_fn, mode=mode), remat)
+        for blk in params["enc_blocks"]:
+            x = pctx.constrain(block(blk, x))
+        return pctx.seq_gather(layers.apply_norm(cfg.norm, params["enc_norm"], x))
 
 
 def _dec_block(blk, h, cfg, enc_kv, *, positions, kv=None, cache_index=None,
@@ -109,10 +121,12 @@ def _cross_kv(cfg, blk, enc_h):
 
 
 def _embed_dec(cfg, params, tokens, start: int):
-    """Token embeddings plus the position rows ``start, start + 1, ...``."""
-    x = layers.embed(params["emb"], tokens, dtype=layers.to_dtype(cfg.compute_dtype))
+    """Token embeddings plus the position rows ``start, start + 1, ...``; under
+    sequence parallelism this model rank's rows of them."""
+    x = layers.embed(params["emb"], tokens, dtype=layers.to_dtype(cfg.compute_dtype),
+                     rows=pctx.seq_parallel())
     S = tokens.shape[1]
-    return x + params["pos_dec"][start:start + S].to(x.dtype)[None]
+    return x + pctx.seq_rows(params["pos_dec"][start:start + S].to(x.dtype)[None])
 
 
 def _dec_train_block(blk, h, enc_h, cfg, *, positions, attn_fn, mode):
@@ -122,7 +136,8 @@ def _dec_train_block(blk, h, enc_h, cfg, *, positions, attn_fn, mode):
 
 
 def decode_train(cfg, params, tokens, enc_h, *, attn_fn=None, remat="full", mode=None):
-    """Teacher-forced decoder pass. Returns hidden (B, S_dec, d)."""
+    """Teacher-forced decoder pass over the whole ``enc_h``. Returns hidden
+    (B, S_dec, d); under sequence parallelism this model rank's rows."""
     x = _embed_dec(cfg, params, tokens, 0)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     block = _checkpointed(partial(_dec_train_block, cfg=cfg, positions=positions,

@@ -28,7 +28,8 @@ to the rows), ``dense_joined`` and ``dense_columns`` hand back the rank's rows
 of the whole output columns (``seq_columns_to_rows``, an all-to-all, in place
 of the columns' all-gather), and ``embed`` the rank's rows of the lookup.
 ``whole_input`` is the input of products of a tensor every rank holds whole
-(the MoE's dispatched tokens, a Mamba2 layer's input).
+(the MoE's dispatched tokens, an RWKV6 mix's gathered input, the encoder
+output the cross-attention projects).
 """
 from __future__ import annotations
 
@@ -256,8 +257,7 @@ def dense_columns(p, x, *, dtype=torch.bfloat16):
     ranks' blocks then joined (under sequence parallelism: turned into this
     rank's rows of the whole columns): each column is one device's, and the
     input's gradient is the ranks' fp32 partials summed and rounded once."""
-    y = dense_split(p, whole_input(x), dtype=dtype)
-    return pctx.seq_columns_to_rows(y) if pctx.seq_parallel() else pctx.gather_from_model(y, -1)
+    return pctx.join_columns(dense_split(p, whole_input(x), dtype=dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -114,20 +114,30 @@ def mamba_apply(params, x, cfg, *, state=None):
     and z are joined over ``model`` before the inner norm, which spans every
     head. The norm and the gate then run alike on every rank, and
     ``out_proj`` is ``layers.dense_columns`` where the layout splits
-    ``d_model``. The state returned holds the rank's heads."""
-    B, S, _ = x.shape
+    ``d_model``. The state returned holds the rank's heads.
+
+    Under sequence parallelism (``parallel.ctx.seq_parallel()``) ``x`` is
+    this model rank's rows and so is the output; the convolution and the
+    scan run over the whole sequence. Where the heads split, ``in_proj``
+    (``x``'s one consumer) takes the rows gathered by ``layers.split_input``
+    and ``out_proj`` hands back the rank's rows of its columns; else the
+    whole layer runs alike on every rank on the gathered sequence
+    (``parallel.ctx.seq_gather``). Either way, where every rank computes all
+    of ``out_proj``'s columns it keeps its rows of them."""
     N = cfg.ssm_state
     d_inner, p, H = _dims(cfg)
-    Q = min(cfg.ssm_chunk, S)
     dt_c = layers.to_dtype(cfg.compute_dtype)
     lay = pctx.layout()
     split = lay is not None and lay.ssm_heads
 
     if split:
         d_inner, H = d_inner // pctx.model_size(), H // pctx.model_size()
-        zxbcdt = layers.dense_split(params["in_proj"], layers.whole_input(x), dtype=dt_c)
+        zxbcdt = layers.dense_split(params["in_proj"], layers.split_input(x), dtype=dt_c)
     else:
+        x = pctx.seq_gather(x)
         zxbcdt = layers.dense(params["in_proj"], x, dtype=dt_c)
+    B, S, _ = zxbcdt.shape
+    Q = min(cfg.ssm_chunk, S)
     z, xc, Bc, Cc, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
     conv_in = torch.cat([xc, Bc, Cc], dim=-1).float()
     conv_out, conv_state = _causal_conv(
@@ -164,7 +174,7 @@ def mamba_apply(params, x, cfg, *, state=None):
     y = y * F.silu(z.float()).to(dt_c)
     if split and lay.d_model:
         return layers.dense_columns(params["out_proj"], y, dtype=dt_c), new_state
-    return layers.dense(params["out_proj"], y, dtype=dt_c), new_state
+    return pctx.seq_rows(layers.dense(params["out_proj"], y, dtype=dt_c)), new_state
 
 
 def mamba_state_init(cfg, batch, *, device):

@@ -129,7 +129,15 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
     ``wg`` and ``decay_w2`` are ``layers.split_mm`` products on the rank's
     heads, the scan, ``u`` and the per-head ``ln_x`` run on them (the rank's
     heads of ``S0``, and the state returned is theirs), and ``wo`` is
-    ``layers.dense_joined`` over the ranks' heads."""
+    ``layers.dense_joined`` over the ranks' heads.
+
+    Under sequence parallelism (``parallel.ctx.seq_parallel()``) ``x`` is
+    this model rank's rows and so is ``y``: the mix runs on the sequence
+    gathered alike on every rank (``parallel.ctx.seq_gather``; the token
+    shift needs the previous rank's last row), its split products' partial
+    input gradients summed by ``layers.whole_input``, and the rank keeps its
+    rows of the output. ``x_last`` is the whole sequence's."""
+    x = pctx.seq_gather(x)
     B, S, d = x.shape
     ph = cfg.rwkv_head_dim
     H = d // ph
@@ -175,7 +183,7 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
     if split:
         y = layers.dense_joined(p["wo"], y.float() * g, dtype=torch.float32)
     else:
-        y = (y.float() * g) @ p["wo"]["w"].float()
+        y = pctx.seq_rows((y.float() * g) @ p["wo"]["w"].float())
     return y.to(x.dtype), S_new, xf[:, -1]
 
 
@@ -186,7 +194,11 @@ def channel_mix(p, x, *, x_prev):
     splits ``d_model``, ``wr`` holds the rank's block of the output columns
     that ``wv`` gives it: the receptance gate multiplies that block, and the
     ranks' gated blocks are joined. Else ``wr`` and the gate run whole, alike
-    on every rank."""
+    on every rank. Under sequence parallelism ``x`` is this model rank's
+    rows and so is ``y``, as in ``time_mix``: the gated blocks are turned
+    into the rank's rows where they were joined (``parallel.ctx.join_columns``),
+    and a rank computing the whole output keeps its rows."""
+    x = pctx.seq_gather(x)
     xf = x.float()
     sx = _token_shift(xf, x_prev)
     dx = sx - xf
@@ -197,14 +209,14 @@ def channel_mix(p, x, *, x_prev):
         k = torch.square(F.relu(xk @ p["wk"]["w"].float()))
         kv = k @ p["wv"]["w"].float()
         y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
-        return y.to(x.dtype), xf[:, -1]
+        return pctx.seq_rows(y).to(x.dtype), xf[:, -1]
     k = torch.square(F.relu(layers.split_mm(layers.whole_input(xk), p["wk"]["w"].float())))
     kv = layers.joined_mm(k, p["wv"]["w"].float(), split=lay.d_model, join=False)
     if lay.d_model:
         r = layers.split_mm(layers.whole_input(xr), p["wr"]["w"].float())
-        y = pctx.gather_from_model(torch.sigmoid(r) * kv, -1)
+        y = pctx.join_columns(torch.sigmoid(r) * kv)
     else:
-        y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
+        y = pctx.seq_rows(torch.sigmoid(xr @ p["wr"]["w"].float()) * kv)
     return y.to(x.dtype), xf[:, -1]
 
 

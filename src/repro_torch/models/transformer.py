@@ -291,11 +291,14 @@ def apply_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     block then runs under ``torch.utils.checkpoint``.
 
     Under sequence parallelism (``parallel.ctx.seq_parallel()``, which the
-    sharded train step turns on for the dense, vlm and moe families only) the
+    sharded train step turns on under a train cell's residual spec) the
     residual is this model rank's rows of the sequence (the VLM prefix
-    counted) from the embeddings on: the blocks' norms and residual adds and
-    the final norm run on the rows, ``positions`` stay whole (the attention
-    sees the gathered sequence), and the hidden state returned is the rows.
+    counted) from the embeddings on: the blocks' norms and residual adds,
+    the hybrid's outer norms, RWKV6's ``ln0`` / ``ln1`` / ``ln2`` and the
+    final norm run on the rows, ``positions`` stay whole, the token mixers
+    (an attention, a Mamba2 layer, RWKV6's time and channel mixes) run on
+    the gathered sequence and hand back the rank's rows, and the hidden
+    state returned is the rows.
     """
     _require_ported(cfg)
     rows = pctx.seq_parallel()

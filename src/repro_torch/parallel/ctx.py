@@ -32,9 +32,11 @@ and ``model_index``.
 
 ``model_parallel(mesh, layout, seq=True)`` also splits the residual by
 sequence (sequence parallelism, the reference's ``P(dp, "model", None)``
-residual): between blocks each model rank holds the rows ``[r*S/tp,
-(r+1)*S/tp)`` of its data rows (``seq_parallel()``). The
-operators the layers need for it work on the sequence dim (1) of a
+residual), in every family: between blocks each model rank holds the rows
+``[r*S/tp, (r+1)*S/tp)`` of its data rows (``seq_parallel()``). A stack with
+a sequence of its own (an encoder's frames) runs inside ``stack(name)``,
+and ``model_parallel(..., stacks={name: split})`` gives it its own answer.
+The operators the layers need for it work on the sequence dim (1) of a
 ``(B, S, ...)`` tensor and, like the others, are the identity and launch
 nothing where ``seq_parallel()`` is false (outside the scope, or at one model
 rank): ``seq_rows`` (this rank's rows of a whole tensor; the rows' gradients
@@ -46,7 +48,9 @@ all-to-all; its backward the inverse all-to-all) and ``seq_rows_of_sum`` (the
 ranks' terms summed and this rank's rows kept, a reduce-scatter, for terms of
 which one rank's is not zero; the rows' gradients all-gathered). A sequence
 gathered alike on every rank, whose gradient every rank then computes whole,
-is ``gather_from_model(x, 1)``. None of them sums per-rank partial products
+is ``seq_gather`` (a token mixer's input: Mamba2's, RWKV6's, a whole
+attention's); ``join_columns`` joins the ranks' output columns, or under the
+split turns them into this rank's rows. None of them sums per-rank partial products
 in the forward (ROADMAP C32): each moves values, sums fp32 partials of an
 input's gradient, or (``seq_rows_of_sum``) adds zeros to a value.
 """
@@ -55,7 +59,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -163,22 +167,40 @@ def data_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
 # tensor parallelism over ``model``
 # ---------------------------------------------------------------------------
 
-# process-wide for the same reason as _DATA_MESH: (mesh, layout, seq)
-_MODEL = (None, None, False)
+# process-wide for the same reason as _DATA_MESH: (mesh, layout, seq, stacks),
+# and the stack the model is running (``stack``)
+_MODEL = (None, None, False, {})
+_STACK = None
 
 
 @contextmanager
-def model_parallel(mesh, layout, seq: bool = False):
+def model_parallel(mesh, layout, seq: bool = False, stacks: Optional[Mapping[str, bool]] = None):
     """Within the scope the model's products are partitioned over ``mesh``'s
     ``model`` axis as ``layout`` (a ``sharding.ModelLayout``) says, each rank
     computing on its shards of the leaves; with ``seq`` the residual is also
-    split by sequence over ``model`` (``seq_parallel``)."""
+    split by sequence over ``model`` (``seq_parallel``). ``stacks`` maps a
+    stack with a sequence of its own (``stack``) to its own answer."""
     global _MODEL
-    prev, _MODEL = _MODEL, (mesh, layout, seq)
+    prev, _MODEL = _MODEL, (mesh, layout, seq, dict(stacks or {}))
     try:
         yield
     finally:
         _MODEL = prev
+
+
+@contextmanager
+def stack(name: str):
+    """Model code runs a stack whose sequence is not the residual's (an
+    encoder's frames) inside ``stack(name)``, its checkpointed blocks too
+    (their recomputes run in the backward, outside the forward's scope):
+    ``seq_parallel`` then gives the ``model_parallel`` scope's answer for
+    ``name``."""
+    global _STACK
+    prev, _STACK = _STACK, name
+    try:
+        yield
+    finally:
+        _STACK = prev
 
 
 def model_group():
@@ -293,9 +315,11 @@ def model_max(x):
 # ---------------------------------------------------------------------------
 
 def seq_parallel() -> bool:
-    """Whether the enclosing ``model_parallel`` scope splits the residual by
+    """Whether the enclosing ``model_parallel`` scope splits the residual of
+    the running stack (``stack``; the model's residual outside one) by
     sequence over more than one model rank."""
-    return bool(_MODEL[2]) and model_group() is not None
+    split = _MODEL[3].get(_STACK, _MODEL[2])
+    return bool(split) and model_group() is not None
 
 
 def _seq_first(x):
@@ -383,6 +407,16 @@ def seq_rows(x):
     return _SeqRows.apply(x, model_group()) if seq_parallel() else x
 
 
+def seq_gather(x):
+    """The model ranks' rows of ``x`` joined into the whole sequence, alike on
+    every rank (``gather_from_model(x, 1)``), for a token mixer that needs the
+    whole sequence and runs alike on every rank up to its split products
+    (whose inputs' partial gradients ``layers.whole_input`` sums); the rank
+    keeps its rows of the whole gradient. ``x`` itself where
+    ``seq_parallel()`` is false."""
+    return gather_from_model(x, 1) if seq_parallel() else x
+
+
 def seq_gather_f32(x):
     """The model ranks' rows of ``x`` gathered into the whole sequence (in
     ``x``'s type, then widened to fp32: the same values); the gradient, each
@@ -397,6 +431,13 @@ def seq_columns_to_rows(y):
     (B, S/tp, N), the whole columns of its rows: an all-to-all, whose backward
     is the inverse all-to-all. Values move; nothing is summed."""
     return _SeqColumnsToRows.apply(y, model_group()) if seq_parallel() else y
+
+
+def join_columns(y):
+    """The model ranks' blocks of ``y``'s last dim joined
+    (``gather_from_model(y, -1)``), or under sequence parallelism turned into
+    this rank's rows of the whole columns (``seq_columns_to_rows``)."""
+    return seq_columns_to_rows(y) if seq_parallel() else gather_from_model(y, -1)
 
 
 def seq_rows_of_sum(x):

@@ -74,14 +74,19 @@ gradients past the 1e-5 parity with one device (ROADMAP C32).
     applied before the join.
   * everything else (norms, the router, the residual, ``pos_dec``) computes
     whole, alike on every model rank.
-  * under sequence parallelism (``compute_layout(..., seq=True)``: the dense,
-    vlm and moe families, ``trainer.seq_parallel``) each rank applies the
-    norms, the bias of a pair's second product and a whole MLP (``d_ff``
-    unsplit) to its own rows of the residual, and the MoE router to its
-    rows' tokens, so its gradient of those replicated leaves is a partial
-    sum; the whole attention, the experts and an unsplit vocabulary still
-    run alike on the gathered sequence (``_compute_leaf``'s table, next to
-    each leaf's split).
+  * under sequence parallelism (``compute_layout(..., seq=True)``, every
+    family, ``trainer.seq_parallel``) each rank applies the norms (the
+    blocks', the hybrid's outer layer norms, RWKV6's ``ln0`` / ``ln1`` /
+    ``ln2``, whisper's ``enc_norm`` / ``dec_norm``), the bias of a pair's
+    second product and a whole MLP (``d_ff`` unsplit) to its own rows of the
+    residual, and the MoE router to its rows' tokens, so its gradient of
+    those replicated leaves is a partial sum; the whole attention, the
+    experts, an unsplit vocabulary, ``pos_dec`` (added to the whole sequence
+    before the rows are taken) and the token mixers' replicated leaves
+    (Mamba2's inner norm, RWKV6's token-shift mixes and LoRAs) still run
+    alike on the gathered sequence (``_compute_leaf``'s table, next to each
+    leaf's split). An encoder's leaves (``STACK_LEAVES``) follow its own
+    stack's answer.
 
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
@@ -334,7 +339,11 @@ class Segments:
 
 
 _COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|moe/router|emb/table|unembed"
-                           r"|attn_norm|mlp_norm|final_norm)(?:/(\w+))?$")
+                           r"|attn_norm|mlp_norm|final_norm|(?:prologue|groups)/norm|ln[012]"
+                           r"|enc_norm|dec_norm)(?:/(\w+))?$")
+# the leaves of each stack whose sequence splits by its own length
+# (``parallel.ctx.stack``): an encoder-decoder's encoder (the frames)
+STACK_LEAVES = {"encoder": ("enc_blocks/", "enc_norm/")}
 # an RWKV6 layer's leaves that split by heads, and the dim of each
 _RWKV_HEADS = re.compile(r"tmix/(?:(w[rkvg]/w|decay_w2)|(decay|u|ln_x/scale|ln_x/bias))$")
 
@@ -398,7 +407,9 @@ def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int, seq: bool = False
         "moe/wg": (lay.experts != "none", False), "moe/wu": (lay.experts != "none", False),
         "moe/wd": (lay.experts == "ep" or (lay.experts == "tp" and lay.d_model), False),
         "moe/router": (False, True), "attn_norm": (False, True), "mlp_norm": (False, True),
-        "final_norm": (False, True),
+        "final_norm": (False, True), "prologue/norm": (False, True),
+        "groups/norm": (False, True), "ln0": (False, True), "ln1": (False, True),
+        "ln2": (False, True), "enc_norm": (False, True), "dec_norm": (False, True),
         "emb/table": (lay.vocab, False), "unembed": (lay.vocab, False)}.get(name, (False, False))
     if not split:
         # wk / wv whole under split q heads: each rank uses its q heads' kv heads
@@ -410,19 +421,23 @@ def _compute_leaf(lay: ModelLayout, cfg, path: str, ndim: int, seq: bool = False
     return _columns(ndim, dim), "shard"
 
 
-def compute_layout(cfg, params_shape, mesh, *, seq: bool = False):
+def compute_layout(cfg, params_shape, mesh, *, seq: bool = False, stacks=None):
     """For each leaf of ``params_shape``, in leaf order, ``(spec, grad)``: the
     spec over ``model`` alone that the sharded step computes the leaf in (its
     data axes are gathered), from ``model_layout``, and how each model rank's
     gradient of it relates to the leaf's: ``"shard"`` (its block), ``"sum"``
     (a partial sum over the ranks) or ``"same"`` (the whole gradient, alike
     on every rank). ``seq``: under sequence parallelism, where a replicated
-    leaf applied to the rank's rows has a ``"sum"`` gradient."""
+    leaf applied to the rank's rows has a ``"sum"`` gradient; ``stacks``
+    maps a stack of ``STACK_LEAVES`` to its own answer (``seq`` elsewhere)."""
     lay = model_layout(cfg, axis_sizes(mesh)["model"])
+    stacks = stacks or {}
     out = []
     for path_elems, leaf in tree.leaves_with_paths(params_shape):
         path = "/".join(str(p) for p in path_elems if not isinstance(p, int))
-        out.append(_compute_leaf(lay, cfg, path, len(leaf.shape), seq))
+        split = next((stacks[k] for k, heads in STACK_LEAVES.items()
+                      if k in stacks and path.startswith(heads)), seq)
+        out.append(_compute_leaf(lay, cfg, path, len(leaf.shape), split))
     return out
 
 

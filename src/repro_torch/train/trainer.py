@@ -31,15 +31,20 @@ them, in column-parallel products.
 
 Sequence parallelism (``seq_parallel``, its one owner): where the enclosing
 ``parallel.ctx.activation_sharding`` scope's residual spec names ``model`` on
-the sequence dim (a train cell's plan, ``launch.specs._with_activation_ctx``),
-the family is one of ``SEQ_PARALLEL_FAMILIES`` and tp divides the sequence,
-each model rank holds, between blocks, its rows ``[r*S/tp, (r+1)*S/tp)`` of
-its data rows (``parallel.ctx.model_parallel(..., seq=True)``), and the
+the sequence dim (a train cell's plan, ``launch.specs._with_activation_ctx``)
+and tp divides the sequence, each model rank holds, between blocks, its rows
+``[r*S/tp, (r+1)*S/tp)`` of its data rows
+(``parallel.ctx.model_parallel(..., seq=True)``), in every family, and the
 replicated leaves it applies to those rows (the norms, a pair's bias, a whole
 MLP, the MoE router) bring back partial gradients
-(``sharding.compute_layout(..., seq=True)``).
-The arithmetic stays one device's. Elsewhere the residual is whole on every
-model rank, as the launcher's ``("data", None, None)`` says.
+(``sharding.compute_layout(..., seq=True)``). The token mixers that need the
+whole sequence (Mamba2's convolution and scan, RWKV6's token shift and scan,
+an attention) run on the gathered sequence and hand back the rank's rows.
+An encoder-decoder's two stacks decide each by its own length
+(``seq_split``): whisper's encoder (1500 frames) stays whole at tp 16 while
+its decoder splits. The arithmetic stays one device's. Elsewhere the
+residual is whole on every model rank, as the launcher's ``("data", None,
+None)`` says.
 
 ``"gathered"`` is the route of the first sharded step (ROADMAP C25), kept as
 the yardstick ``tests/test_torch_cost.py`` counts the partitioned route
@@ -70,9 +75,6 @@ from repro_torch.train.loss import chunked_cross_entropy, gather_rows
 
 
 PARTITIONED_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "encdec")
-# the families whose residual the sharded step splits by sequence over model
-# (the hybrid and ssm token mixers and the encdec stacks keep it whole)
-SEQ_PARALLEL_FAMILIES = ("dense", "vlm", "moe")
 
 
 def route(cfg) -> str:
@@ -82,9 +84,9 @@ def route(cfg) -> str:
 
 def seq_parallel(cfg, mesh, S: int) -> bool:
     """Whether the sharded step over ``mesh`` splits ``cfg``'s residual of
-    ``S`` positions (a VLM's prefix counted) by sequence over ``model``: the
-    enclosing activation scope's residual spec names ``model`` on the sequence
-    dim, the family is one of ``SEQ_PARALLEL_FAMILIES``, and tp divides ``S``
+    ``S`` positions (a VLM's prefix counted; an encoder's frames, for its own
+    stack) by sequence over ``model``: the enclosing activation scope's
+    residual spec names ``model`` on the sequence dim, and tp divides ``S``
     (where it does not, the residual stays whole, as ``sharding.sanitize_spec``
     drops an axis that does not divide; the reference's XLA pads: ROADMAP
     C33). At one model rank the split is the identity."""
@@ -93,13 +95,24 @@ def seq_parallel(cfg, mesh, S: int) -> bool:
     if spec is None or len(spec) < 2 or route(cfg) != "partitioned":
         return False
     names = spec[1] if isinstance(spec[1], tuple) else (spec[1],)
-    return ("model" in names and cfg.family in SEQ_PARALLEL_FAMILIES
-            and S % shd.axis_sizes(mesh)["model"] == 0)
+    return "model" in names and S % shd.axis_sizes(mesh)["model"] == 0
 
 
 def seq_len(batch) -> int:
-    """The positions of a batch's residual: its tokens behind a VLM's prefix."""
+    """The positions of a batch's residual: its tokens behind a VLM's prefix
+    (an encoder-decoder's decoder tokens)."""
     return batch["tokens"].shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+
+
+def seq_split(cfg, mesh, batch):
+    """``(seq, stacks)`` of ``batch`` for ``parallel.ctx.model_parallel`` and
+    ``sharding.compute_layout``: ``seq_parallel`` of the residual, and of each
+    stack with a sequence of its own (an encoder-decoder's encoder, by its
+    frames)."""
+    seq = seq_parallel(cfg, mesh, seq_len(batch))
+    stacks = ({"encoder": seq_parallel(cfg, mesh, batch["frames"].shape[1])}
+              if "frames" in batch else {})
+    return seq, stacks
 
 
 @dataclass(frozen=True)
@@ -219,10 +232,11 @@ def shard_batch(batch, mesh, microbatches: int = 1):
     return {k: place(v) for k, v in batch.items()}
 
 
-def _partitioned_gather(cfg, params, mesh, seq: bool = False):
+def _partitioned_gather(cfg, params, mesh, seq: bool = False, stacks=None):
     """The plain tensors the partitioned loss computes with, one a leaf of
     ``params`` (DTensors): each leaf gathered over the data axes, in its
-    ``compute_layout`` over ``model`` (``seq``: under sequence parallelism),
+    ``compute_layout`` over ``model`` (``seq``, ``stacks``: under sequence
+    parallelism, ``seq_split``),
     its gradient coming back summed over the data axes and, over ``model``,
     as the layout says. A ``Segments``
     entry (a Mamba2 layer's fused ``in_proj``) gathers the leaf over ``model``
@@ -232,7 +246,8 @@ def _partitioned_gather(cfg, params, mesh, seq: bool = False):
     tp, rank = shd.axis_sizes(mesh)["model"], mesh.get_local_rank("model")
     out = []
     for p, (spec, grad) in zip(tree.leaves(params),
-                               shd.compute_layout(cfg, params, mesh, seq=seq)):
+                               shd.compute_layout(cfg, params, mesh, seq=seq,
+                                                  stacks=stacks)):
         model = next((Shard(i) for i, e in enumerate(spec) if e == "model"), Replicate())
         model_grad = {"shard": model, "sum": Partial("sum"), "same": Replicate()}[grad]
         compute = tuple(model if n == "model" else Replicate() for n in names)
@@ -252,7 +267,7 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
     loss_fn = make_loss_fn(cfg, run, mode=mode)
     gather = None
 
-    def scope(seq):
+    def scope(seq, stacks):
         return contextlib.nullcontext()
 
     if mesh is not None:
@@ -264,26 +279,26 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
         if route(cfg) == "partitioned":
             layout = shd.model_layout(cfg, shd.axis_sizes(mesh)["model"])
 
-            def scope(seq):
-                return pctx.model_parallel(mesh, layout, seq=seq)
+            def scope(seq, stacks):
+                return pctx.model_parallel(mesh, layout, seq=seq, stacks=stacks)
 
-            def gather(params, leaves, seq):
-                return _partitioned_gather(cfg, params, mesh, seq)
+            def gather(params, leaves, seq, stacks):
+                return _partitioned_gather(cfg, params, mesh, seq, stacks)
         else:
             # each data rank's loss is its share of the global loss (the ranks'
             # terms add up to it); every model rank of a data row computes the same
             grad_pl = tuple(Partial("sum") if a in fsdp else Replicate()
                             for a in shd.axis_names(mesh))
 
-            def gather(params, leaves, seq):
+            def gather(params, leaves, seq, stacks):
                 return [p.full_tensor(grad_placements=grad_pl) for p in leaves]
 
     def grads_of(params, mb):
         leaves = tree.leaves(params)
-        seq = mesh is not None and seq_parallel(cfg, mesh, seq_len(mb))
-        full = leaves if gather is None else gather(params, leaves, seq)
+        seq, stacks = (False, {}) if mesh is None else seq_split(cfg, mesh, mb)
+        full = leaves if gather is None else gather(params, leaves, seq, stacks)
         # the backward's checkpointed recomputes run the model again: in the scope
-        with scope(seq):
+        with scope(seq, stacks):
             total, metrics = loss_fn(tree.rebuild(params, full), mb)
             return torch.autograd.grad(total, leaves, allow_unused=True,
                                        materialize_grads=True), metrics

@@ -38,6 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import roofline as troofline
 from repro_torch.launch import specs as tspecs
 from repro_torch.models import api as tapi
+from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
 from repro_torch.utils import cost
 from repro_torch.utils.cost import CostCounter
@@ -251,9 +252,15 @@ SPLIT = [("olmo-1b", TRAIN), ("zamba2-7b", TRAIN), ("rwkv6-7b", TRAIN),
 # train cells also counted on the (2, 2) mesh without sequence parallelism
 # (the plan's seq_shard_acts off: the residual whole on each model rank, the
 # record "-unsplit"), beside the plan's own, which splits it; dbrx at 128
-# positions, so that a data rank's 4 x 128 rows make one MoE dispatch group
+# positions, so that a data rank's 4 x 128 rows make one MoE dispatch group;
+# whisper at train_4k's 4096 decoder positions (8 frames): at 64 the peak of
+# both records is the step's parameter side (pos_dec's 65536 x 64 fp32 rows
+# gathered, their gradient and its reduce-scatter), which the split leaves as
+# it is, and the activations it cuts first set the peak at longer sequences
 DBRX_TRAIN = JShape("train_m", 128, 8, "train")
-SEQ = [("olmo-1b", TRAIN), ("dbrx-132b", DBRX_TRAIN)]
+WHISPER_TRAIN = JShape("train_l", 4096, 8, "train")
+SEQ = [("olmo-1b", TRAIN), ("dbrx-132b", DBRX_TRAIN), ("zamba2-7b", TRAIN), ("rwkv6-7b", TRAIN),
+       ("whisper-large-v3", WHISPER_TRAIN)]
 PLAN_FIELDS = [f.name for f in dataclasses.fields(tspecs.CellPlan)]
 
 
@@ -440,34 +447,57 @@ def _moe_whole_flops(cfg, tokens):
     return 4 * 2 * tokens * cfg.num_experts * cap * cfg.d_model * cfg.num_layers
 
 
+def _rwkv_mixer_gathers(cfg, batch, seq, tp):
+    """Wire bytes of an RWKV6 train step's gathered token-mixer inputs under
+    sequence parallelism over ``tp`` model ranks: each layer's time mix and
+    channel mix gather their input's rows (``ctx.seq_gather``, in the compute
+    type), forward and again in the remat recompute."""
+    rows = batch * seq * cfg.d_model * torch.finfo(tlayers.to_dtype(cfg.compute_dtype)).bits // 8
+    return 4 * cfg.num_layers * rows * (tp - 1) / tp
+
+
 @pytest.mark.parametrize("arch,shape", SEQ, ids=[a for a, _ in SEQ])
 def test_sequence_parallelism_cuts_a_train_cells_peak_and_wire(port_records, arch, shape):
     """A1c: on the (2, 2) mesh the plan's ``seq_shard_acts`` splits the
     residual by sequence over model. Against the same cell with the residual
     whole on each model rank (the record of A1 and A1b): a lower peak (the
-    remat carries are a rank's rows), fewer bytes on the wire (a join's
-    all-to-all moves 1/tp of its columns' all-gather; dbrx's dispatch hands
-    its fp32 partials to a reduce-scatter, where they were all-reduced) and
-    all-to-alls where there were none; the same FLOPs within what the router
-    on a rank's rows saves, more than a quarter of one device's and, for
-    olmo-1b, at most 0.3 of them (``test_a_2x2_mesh_halves_a_train_cell``);
-    dbrx's combine einsum runs alike on every model rank
-    (``_moe_whole_flops``): a quarter of the rest, half of it, within olmo's
-    allowance of 0.05."""
+    remat carries are a rank's rows), all-to-alls where there were none, and
+    fewer bytes on the wire (a join's all-to-all moves 1/tp of its columns'
+    all-gather; dbrx's dispatch hands its fp32 partials to a reduce-scatter,
+    where they were all-reduced), but for rwkv6-7b: its time and channel
+    mixes run alike on every rank on their gathered input (the token shift
+    needs the previous rank's last row), whose gathers, forward and in the
+    remat recompute, are bytes the whole residual did not move, while their
+    split products' partial input gradients are still all-reduced; its wire
+    rises, by less than those gathers (``_rwkv_mixer_gathers``). The same
+    FLOPs within what the router on a rank's rows saves, more than a quarter
+    of one device's and at most 0.3 of them
+    (``test_a_2x2_mesh_halves_a_train_cell``); dbrx's combine einsum
+    (``_moe_whole_flops``) and rwkv6's LoRA mixes (``_rwkv_whole_flops``) run
+    alike on every model rank: a quarter of the rest, half of them, within
+    olmo's allowance of 0.05."""
     one = port_records[f"{arch}|{shape.name}|1x1"]
     sp = port_records[f"{arch}|{shape.name}|2x2"]
     whole = port_records[f"{arch}|{shape.name}|2x2-unsplit"]
+    cfg = tregistry.get(arch).reduced()
     assert sp["plan"]["seq_shard_acts"] and not whole["plan"]["seq_shard_acts"]
     assert sp["mem"]["peak_bytes"] < whole["mem"]["peak_bytes"]
-    assert sp["collective_bytes_per_device"] < whole["collective_bytes_per_device"]
+    wire, wire_whole = sp["collective_bytes_per_device"], whole["collective_bytes_per_device"]
+    if arch == "rwkv6-7b":
+        assert wire_whole < wire < wire_whole + _rwkv_mixer_gathers(
+            cfg, shape.global_batch // 2, shape.seq_len, 2)
+    else:
+        assert wire < wire_whole
     assert sp["collective_counts"]["count_all-to-all"] > 0
     assert whole["collective_counts"].get("count_all-to-all", 0) == 0
     f1, f4 = one["flops_per_device"], sp["flops_per_device"]
     assert f4 <= whole["flops_per_device"]
+    alike = {"dbrx-132b": lambda: _moe_whole_flops(cfg, shape.tokens),
+             "rwkv6-7b": lambda: _rwkv_whole_flops(cfg, shape.global_batch, shape.seq_len)}
     top = 0.3 * f1
-    if arch == "dbrx-132b":
-        moe = _moe_whole_flops(tregistry.get(arch).reduced(), shape.tokens)
-        top = (f1 - moe) / 4 + moe / 2 + 0.05 * f1
+    if arch in alike:
+        whole_flops = alike[arch]()
+        top = (f1 - whole_flops) / 4 + whole_flops / 2 + 0.05 * f1
     assert f1 / 4 < f4 <= top, (arch, f4 / f1)
 
 

@@ -564,6 +564,34 @@ SEQ_LAYOUT_CASES = [
     ("dbrx-132b", 16, ("blocks", "moe", "router"), "same", "sum"),
     ("dbrx-132b", 16, ("blocks", "moe", "wg"), "shard", "shard"),
     ("dbrx-132b", 16, ("final_norm", "bias"), "same", "sum"),
+    # the hybrid: the outer norms and the shared block's norms on the rows; the
+    # Mamba2 layer's inner norm on the gathered sequence (its heads joined)
+    ("zamba2-7b", 16, ("prologue", "norm", "scale"), "same", "sum"),
+    ("zamba2-7b", 16, ("groups", "norm", "scale"), "same", "sum"),
+    ("zamba2-7b", 16, ("groups", "mamba", "norm", "scale"), "same", "same"),
+    ("zamba2-7b", 16, ("shared_attn", "mlp_norm", "scale"), "same", "sum"),
+    ("zamba2-7b", 16, ("groups", "mamba", "in_proj", "w"), "sum", "sum"),
+    # 112 Mamba2 heads over 32 do not split: the layer alike on the gathered
+    # sequence, its outer norm on the rows
+    ("zamba2-7b", 32, ("prologue", "mamba", "out_proj", "w"), "same", "same"),
+    ("zamba2-7b", 32, ("prologue", "norm", "scale"), "same", "sum"),
+    # RWKV6: ln0 / ln1 / ln2 on the rows; the mixes on the gathered sequence
+    ("rwkv6-7b", 16, ("ln0", "bias"), "same", "sum"),
+    ("rwkv6-7b", 16, ("blocks", "ln1", "scale"), "same", "sum"),
+    ("rwkv6-7b", 16, ("blocks", "ln2", "bias"), "same", "sum"),
+    ("rwkv6-7b", 16, ("blocks", "block", "tmix", "maa_x"), "same", "same"),
+    ("rwkv6-7b", 16, ("blocks", "block", "tmix", "maa_w1"), "same", "same"),
+    ("rwkv6-7b", 16, ("blocks", "block", "cmix", "maa_r"), "same", "same"),
+    ("rwkv6-7b", 7, ("blocks", "block", "cmix", "wr", "w"), "same", "same"),
+    # whisper: enc_norm / dec_norm and the cross-attention's norm on the rows;
+    # pos_dec added to the whole sequence before the rows are taken; 20 heads
+    # over 16: the attentions, their bias too, on the gathered sequence
+    ("whisper-large-v3", 16, ("enc_norm", "scale"), "same", "sum"),
+    ("whisper-large-v3", 16, ("dec_norm", "bias"), "same", "sum"),
+    ("whisper-large-v3", 16, ("dec_blocks", "xattn_norm", "scale"), "same", "sum"),
+    ("whisper-large-v3", 16, ("pos_dec",), "same", "same"),
+    ("whisper-large-v3", 16, ("dec_blocks", "xattn", "wo", "b"), "same", "same"),
+    ("whisper-large-v3", 4, ("dec_blocks", "xattn", "wo", "b"), "same", "sum"),
 ]
 
 

@@ -1,13 +1,16 @@
 """The partitioned sharded step of the hybrid (zamba2-7b), ssm (rwkv6-7b) and
 encdec (whisper-large-v3) families: their compute layout over ``model`` at
-full width (each leaf's spec and gradient kind, ``sharding.compute_layout``),
-and 3 training steps on 3 or 4 gloo ranks held to the single-device port run
-within ``TOL`` on losses, gradient norms and the gathered parameters.
+full width (each leaf's spec and gradient kind, ``sharding.compute_layout``,
+with and without sequence parallelism), and 3 training steps on 3 or 4 gloo
+ranks held to the single-device port run within ``TOL`` on losses, gradient
+norms and the gathered parameters.
 
 The jobs run ``test_torch_parallel``'s gloo worker (imported, not copied) on
 reduced fp32 configs: each family on a 2 x 2 mesh, where tp 2 divides every
 dim it splits, and once on a (1, tp) mesh where tp divides some dims and not
-others (``replace=`` where the reduced config would divide everything).
+others (``replace=`` where the reduced config would divide everything); each
+again inside a train cell's activation scope (the "-sp" jobs), whose residual
+spec splits the residual by sequence over ``model`` where tp divides it.
 """
 import dataclasses
 
@@ -18,9 +21,10 @@ import torch
 from repro_torch import tree
 from repro_torch.configs import registry as tregistry
 from repro_torch.models import api as tapi
+from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as tshd
 from repro_torch.train import trainer as ttrainer
-from test_torch_parallel import TOL, FakeMesh, _port_key, _run_ranks, _single_device
+from test_torch_parallel import SP, TOL, FakeMesh, _port_key, _run_ranks, _single_device
 
 FAMILIES = {"zamba2-7b": "hybrid", "rwkv6-7b": "ssm", "whisper-large-v3": "encdec"}
 
@@ -120,6 +124,31 @@ def test_compute_layout_of_the_ssm_and_encdec_families(arch, tp, leaf, want):
     assert all(g in ("shard", "sum", "same") for _, g in layout.values())
 
 
+@pytest.mark.parametrize("tp,frames,tokens", [(16, 1500, 4096), (4, 1500, 4096), (16, 1504, 4096),
+                                               (4, 6, 16)])
+def test_whisper_splits_each_stack_by_its_own_length(tp, frames, tokens):
+    """Under a train cell's scope ``trainer.seq_split`` decides whisper's
+    encoder by its frames and its decoder by its tokens (C33, per stack): at
+    tp 16 the 1500 frames stay whole while 4096 tokens split; the encoder's
+    leaves then keep the gradient kind of the whole residual and the
+    decoder's take the split's (``sharding.compute_layout``'s ``stacks``)."""
+    cfg = tregistry.get("whisper-large-v3")
+    mesh = FakeMesh(data=16, model=tp)
+    batch = {"tokens": torch.zeros(1, tokens), "frames": torch.zeros(1, frames, 1)}
+    with pctx.activation_sharding(residual=tuple(SP)):
+        seq, stacks = ttrainer.seq_split(cfg, mesh, batch)
+    assert seq == (tokens % tp == 0) and stacks == {"encoder": frames % tp == 0}
+    params = tapi.init(cfg, device="meta")
+    layout = dict(zip([_port_key(p) for p, _ in tree.leaves_with_paths(params)],
+                      tshd.compute_layout(cfg, params, mesh, seq=seq, stacks=stacks)))
+    enc = "sum" if stacks["encoder"] else "same"
+    assert layout[("enc_norm", "scale")][1] == layout[("enc_blocks", "attn_norm", "bias")][1] == enc
+    assert layout[("dec_norm", "scale")][1] == layout[("dec_blocks", "mlp_norm", "bias")][1] \
+        == ("sum" if seq else "same")
+    with pctx.activation_sharding(residual=("data", None, None)):
+        assert ttrainer.seq_split(cfg, mesh, batch) == (False, {"encoder": False})
+
+
 @pytest.mark.parametrize("arch", list(FAMILIES))
 def test_every_family_takes_the_partitioned_route(arch):
     cfg = tregistry.get(arch)
@@ -159,7 +188,29 @@ JOBS = {"zamba2-7b": dict(arch="zamba2-7b", mesh=[2, 2], batch=4, seq=32, steps=
         "whisper-large-v3-tp3": dict(arch="whisper-large-v3", mesh=[1, 3], batch=2, seq=16,
                                      steps=3, microbatches=1,
                                      replace={"num_heads": 12, "num_kv_heads": 12,
-                                              "d_ff": 96})}
+                                              "d_ff": 96}),
+        # inside a train cell's scope: zamba2 with its Mamba2 heads split (2 x 2)
+        # and whole ((1, 4): each layer alike on every rank on the gathered
+        # sequence); rwkv6 over several WKV chunks (80 positions, chunk 64)
+        # and with the time mix whole ((1, 3) at 18 positions); whisper with
+        # both stacks split (8 frames, 16 tokens on 2 x 2) and with its 6
+        # frames whole and its 16 tokens split on (1, 4), where its 6 heads
+        # do not split: the whole cross-attention on the gathered decoder
+        # sequence hands back the rank's rows
+        "zamba2-7b-sp": dict(arch="zamba2-7b", mesh=[2, 2], batch=4, seq=32, steps=3,
+                             microbatches=1, residual=SP),
+        "zamba2-7b-tp4-sp": dict(arch="zamba2-7b", mesh=[1, 4], batch=2, seq=32, steps=3,
+                                 microbatches=1, residual=SP),
+        "rwkv6-7b-sp": dict(arch="rwkv6-7b", mesh=[2, 2], batch=4, seq=80, steps=3,
+                            microbatches=1, residual=SP),
+        "rwkv6-7b-tp3-sp": dict(arch="rwkv6-7b", mesh=[1, 3], batch=2, seq=18, steps=3,
+                                microbatches=1, residual=SP, replace={"d_ff": 96}),
+        "whisper-large-v3-sp": dict(arch="whisper-large-v3", mesh=[2, 2], batch=4, seq=16,
+                                    steps=3, microbatches=1, residual=SP),
+        "whisper-large-v3-tp4-sp": dict(arch="whisper-large-v3", mesh=[1, 4], batch=2,
+                                        seq=16, steps=3, microbatches=1, residual=SP,
+                                        replace={"num_heads": 6, "num_kv_heads": 6,
+                                                 "frontend_len": 6})}
 
 
 @pytest.fixture(scope="module", params=list(JOBS))
@@ -186,6 +237,48 @@ def test_sharded_families_match_the_single_device_run(family_run):
         np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
+def test_the_residual_is_split_by_sequence_where_tp_divides_it(family_run):
+    """Under a train cell's residual spec (the "-sp" jobs) each block's input
+    (a Mamba2 layer's and the shared attention block's, an RWKV6 layer's, an
+    encoder and a decoder block's) is the model rank's ``S/tp`` rows where
+    ``trainer.seq_parallel`` holds for its stack, and whole elsewhere and in
+    the jobs without the spec: whisper's encoder by its frames, its decoder by
+    its tokens. Where a stack splits the sequence operators ran, and no
+    all-reduce of a 2-d or larger tensor is issued in the forward (C32);
+    every split job but rwkv6's at tp 3 reduce-scatters a gathered input's
+    fp32 gradient back to the rows (``seq_gather_f32``): there the time mix is
+    whole, the channel mix's split products take the gathered sequence alike
+    (their inputs' gradients all-reduced) and the vocabulary (256) does not
+    split over 3, so nothing is gathered as a split input."""
+    name, out, _ = family_run
+    job = JOBS[name]
+    cfg = dataclasses.replace(tregistry.get(job["arch"]).reduced(), **job.get("replace", {}))
+    tp = job["mesh"][1]
+
+    def split(S):
+        return "residual" in job and S % tp == 0
+
+    def rows(S):
+        return [S // tp if split(S) else S]
+
+    seq, rows_of = split(job["seq"]), out["stack_rows"]
+    assert out["seq_parallel"] == seq
+    if cfg.family == "hybrid":
+        assert rows_of["mamba"] == rows(job["seq"]) == out["block_rows"]
+    elif cfg.family == "ssm":
+        assert rows_of["rwkv"] == rows(job["seq"])
+    else:
+        assert out["seq_stacks"] == {"encoder": split(cfg.frontend_len)}
+        assert rows_of["enc"] == rows(cfg.frontend_len) and rows_of["dec"] == rows(job["seq"])
+    if "residual" in job and name != "whisper-large-v3-tp4-sp":
+        assert seq
+    if seq:
+        assert out["seq_ops"] > 0 and out["forward_reduces"] == []
+        assert (out["seq_scatters"] == 0) == (name == "rwkv6-7b-tp3-sp"), out["seq_scatters"]
+    else:
+        assert out["seq_ops"] == out["seq_scatters"] == 0
+
+
 def test_the_reduced_jobs_split_what_their_names_say():
     """The layouts the jobs above run in."""
     def lay(name):
@@ -204,3 +297,11 @@ def test_the_reduced_jobs_split_what_their_names_say():
     assert not tp3.ssm_heads and tp3.d_ff and not tp3.d_model and not tp3.vocab
     tp3 = lay("whisper-large-v3-tp3")
     assert tp3.heads and tp3.kv_heads and tp3.d_ff and not tp3.d_model and not tp3.vocab
+    assert lay("zamba2-7b-sp") == lay("zamba2-7b") and lay("rwkv6-7b-sp") == lay("rwkv6-7b")
+    assert lay("whisper-large-v3-sp") == lay("whisper-large-v3")
+    assert lay("zamba2-7b-tp4-sp") == tp4 and lay("rwkv6-7b-tp3-sp") == lay("rwkv6-7b-tp3")
+    # whisper's 6 heads whole over 4 (the cross-attention on the gathered
+    # decoder sequence), d_ff, d_model and the vocabulary split
+    tp4 = lay("whisper-large-v3-tp4-sp")
+    assert not tp4.heads and tp4.d_ff and tp4.d_model and tp4.vocab
+    assert sum("residual" in j for j in JOBS.values()) == 6

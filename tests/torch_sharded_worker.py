@@ -20,7 +20,10 @@ runs full-width ``arch`` in its own compute type on one card a rank (NCCL;
 without ``torch.distributed.run``, one rank on one card), 3 steps with the
 launcher's optimizer settings, once without and once with the train cell's
 residual spec, and writes each run's losses, step ms, every rank's peak
-memory and one profiled step to ``F.json``.
+memory and one profiled step to ``F.json``. ``--cut FIELD=N`` (repeated)
+cuts the depth (``--cut num_layers=4``; zamba2-7b as ``chip_smoke.py``'s
+parallel phase: ``--cut hybrid_prologue=1 --cut hybrid_groups=2 --cut
+hybrid_mamba_per_group=2 --cut num_layers=7``).
 """
 import argparse
 import dataclasses
@@ -39,7 +42,7 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import DataIterator
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import moe, transformer
+from repro_torch.models import encdec, moe, transformer
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
@@ -78,27 +81,55 @@ def dropped_in_first_group(idx, cfg, group):
     return [T, g, int((pos.gather(1, first[:, None]) >= cap).sum())]
 
 
+# the sequence-parallel operators of ``parallel.ctx`` that move a sequence
+# between rows and the whole (a ``Recorder`` counts their calls under the split)
+SEQ_OPS = ("seq_rows", "seq_gather", "seq_gather_f32", "seq_columns_to_rows",
+           "seq_rows_of_sum")
+# the blocks of the hybrid, ssm and encdec stacks whose input rows a
+# ``Recorder`` notes, by (module, function)
+STACK_BLOCKS = {"mamba": (transformer, "_mamba_layer_apply"),
+                "rwkv": (transformer, "_rwkv_layer_apply"),
+                "enc": (encdec, "_enc_block"), "dec": (encdec, "_dec_block")}
+
+
 class Recorder:
     """What a run's checks read, recorded while it trains: each block's input
-    rows, the routing groups each MoE layer queues, the model-group
-    all-reduces of inputs' gradients (``all_reduce_f32``), the reduce-scatters
-    of a gathered sequence's gradient back to the rows (``seq_gather_f32``'s),
-    the forward all-reduces of 2-d or larger tensors (a sum of per-rank
-    partial products, C32) and any ``full_tensor``."""
+    rows (``_block_apply``'s, and apart those of ``STACK_BLOCKS``), the
+    routing groups each MoE layer queues, the model-group all-reduces of
+    inputs' gradients (``all_reduce_f32``), the reduce-scatters of a gathered
+    sequence's gradient back to the rows (``seq_gather_f32``'s), the calls of
+    ``SEQ_OPS`` under the split, the forward all-reduces of 2-d or larger
+    tensors (a sum of per-rank partial products, C32) and any
+    ``full_tensor``."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.block_rows, self.groups, self.fwd_reduces = set(), [], []
-        self.model_sums, self.seq_scatters, self.gathers = 0, 0, 0
+        self.stack_rows = {k: set() for k in STACK_BLOCKS}
+        self.model_sums, self.seq_scatters, self.seq_ops, self.gathers = 0, 0, 0, 0
 
     def __enter__(self):
         self.saved = (transformer._block_apply, moe.aux_load_balance_loss, DTensor.full_tensor,
                       pctx.all_reduce_f32, dist.all_reduce, pctx._SeqGatherF32.backward)
+        self.saved_fns = {k: getattr(m, f) for k, (m, f) in STACK_BLOCKS.items()}
+        self.saved_ops = {op: getattr(pctx, op) for op in SEQ_OPS}
         block, aux, full_tensor, all_reduce_f32, all_reduce, seq_scatter = self.saved
 
         def rec_block(p, x, cfg, **kw):
             self.block_rows.add(int(x.shape[1]))
             return block(p, x, cfg, **kw)
+
+        def rec_stack(key, fn):
+            def run(p, x, *a, **kw):
+                self.stack_rows[key].add(int(x.shape[1]))
+                return fn(p, x, *a, **kw)
+            return run
+
+        def rec_op(fn):
+            def run(x):
+                self.seq_ops += pctx.seq_parallel()
+                return fn(x)
+            return run
 
         def rec_aux(probs, idx, n):
             self.groups.append(dropped_in_first_group(idx, self.cfg, 512))
@@ -125,12 +156,20 @@ class Recorder:
         DTensor.full_tensor, pctx.all_reduce_f32 = rec_full, rec_f32
         dist.all_reduce = rec_all_reduce
         pctx._SeqGatherF32.backward = staticmethod(rec_seq_scatter)
+        for key, (module, name) in STACK_BLOCKS.items():
+            setattr(module, name, rec_stack(key, self.saved_fns[key]))
+        for op, fn in self.saved_ops.items():
+            setattr(pctx, op, rec_op(fn))
         return self
 
     def __exit__(self, *exc):
         (transformer._block_apply, moe.aux_load_balance_loss, DTensor.full_tensor,
          pctx.all_reduce_f32, dist.all_reduce) = self.saved[:5]
         pctx._SeqGatherF32.backward = staticmethod(self.saved[5])
+        for key, (module, name) in STACK_BLOCKS.items():
+            setattr(module, name, self.saved_fns[key])
+        for op, fn in self.saved_ops.items():
+            setattr(pctx, op, fn)
 
 
 def run_job(rank, world, job):
@@ -158,8 +197,9 @@ def run_job(rank, world, job):
     data = DataIterator(cfg, batch=job["batch"], seq=job["seq"])
     metrics = []
     # the partitioned route: no parameter gathered whole, and the inputs'
-    # gradients summed over model: all-reduced, or under sequence parallelism
-    # reduce-scattered to the rows
+    # gradients summed over model: all-reduced where the residual is whole;
+    # under sequence parallelism the sequence operators ran (the dense jobs'
+    # test also asks for reduce-scatters to the rows)
     with Recorder(cfg) as rec:
         for _ in range(job["steps"]):
             batch = trainer.shard_batch({k: torch.from_numpy(v) for k, v in next(data).items()},
@@ -169,15 +209,20 @@ def run_job(rank, world, job):
     assert trainer.route(cfg) == "partitioned" and not rec.gathers
     batch = next(DataIterator(cfg, batch=job["batch"], seq=job["seq"]))
     with pctx.activation_sharding(residual=tuple(residual or ("data", None, None))):
-        seq = trainer.seq_parallel(cfg, mesh, trainer.seq_len(batch))
-    assert rec.seq_scatters > 0 if seq else (rec.model_sums > 0 and rec.seq_scatters == 0)
+        seq, stacks = trainer.seq_split(cfg, mesh, batch)
+    if seq or any(stacks.values()):
+        assert rec.seq_ops > 0
+    else:
+        assert rec.model_sums > 0 and rec.seq_ops == 0 and rec.seq_scatters == 0
     # copies: a replicated leaf's full_tensor is its local tensor, which a later
     # step updates in place
     full = [p.full_tensor().detach().numpy().copy() for p in tree.leaves(state.params)]
 
     out = {"metrics": metrics, "model_reduces": rec.model_sums,
-           "seq_scatters": rec.seq_scatters, "seq_parallel": seq,
-           "block_rows": sorted(rec.block_rows), "moe_groups": rec.groups,
+           "seq_scatters": rec.seq_scatters, "seq_ops": rec.seq_ops, "seq_parallel": seq,
+           "seq_stacks": stacks, "block_rows": sorted(rec.block_rows),
+           "stack_rows": {k: sorted(v) for k, v in rec.stack_rows.items()},
+           "moe_groups": rec.groups,
            "forward_reduces": rec.fwd_reduces}
     if cfg.family == "moe" and job["mesh"][0] > 1:
         # a rank's rows short of a dispatch group are refused
@@ -283,12 +328,14 @@ def chip_run(cfg, mesh, job, residual, dev, data):
         wall = (time.perf_counter() - t0) * 1e3
     busy, nccl = _device_ms(prof)
     with pctx.activation_sharding(residual=tuple(residual or ("data", None, None))):
-        seq = trainer.seq_parallel(cfg, mesh, trainer.seq_len(data[0]))
+        seq, stacks = trainer.seq_split(cfg, mesh, data[0])
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, [set_up_peak / 1e9, steps_peak / 1e9])
     del state, step, batches
     torch.cuda.empty_cache()
-    return {"residual": residual, "seq_parallel": seq, "block_rows": sorted(rec.block_rows),
+    return {"residual": residual, "seq_parallel": seq, "seq_stacks": stacks,
+            "block_rows": sorted(rec.block_rows),
+            "stack_rows": {k: sorted(v) for k, v in rec.stack_rows.items()},
             "losses": [x["loss"] for x in log], "grad_norms": [x["grad_norm"] for x in log],
             "step_ms": [x["ms"] for x in log],
             "set_up_peak_gb": [p[0] for p in peaks], "steps_peak_gb": [p[1] for p in peaks],
@@ -304,6 +351,8 @@ def chip_main(argv):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--remat", default="full")
     ap.add_argument("--tp", type=int, default=None, help="model ranks (default: all)")
+    ap.add_argument("--cut", action="append", default=[], metavar="FIELD=N",
+                    help="a config field's value, to cut the depth (repeated)")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
@@ -320,14 +369,15 @@ def chip_main(argv):
         dist.init_process_group("nccl", init_method="file://" + store, rank=0, world_size=1,
                                 device_id=dev)
     tp = args.tp or world
-    cfg = registry.get(args.arch)
+    cut = {k: int(v) for k, v in (c.split("=", 1) for c in args.cut)}
+    cfg = dataclasses.replace(registry.get(args.arch), **cut)
     mesh = make_mesh((world // tp, tp), ("data", "model"))
     job = {"microbatches": 1, "steps": args.steps, "remat": args.remat}
     it = DataIterator(cfg, batch=args.batch, seq=args.seq)
     data = [next(it) for _ in range(args.steps + 1)]
     runs = [chip_run(cfg, mesh, job, residual, dev, data) for residual in (None, SP_RESIDUAL)]
     if rank == 0:
-        out = {"arch": cfg.name, "mesh": {"data": world // tp, "model": tp},
+        out = {"arch": cfg.name, "cut": cut, "mesh": {"data": world // tp, "model": tp},
                "batch": args.batch, "seq": args.seq, "steps": args.steps, "remat": args.remat,
                "compute_dtype": cfg.compute_dtype, "device": torch.cuda.get_device_name(dev),
                "runs": runs}

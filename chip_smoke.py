@@ -137,6 +137,24 @@ Phases, each printing one JSON line:
            launches a step; each prints its depth cut, route, losses, norms,
            step ms, the steps' peak of every run and one more sharded step
            under the profiler
+  examples the port's example scripts (examples/torch_*.py) on the card, in
+           this process, each through its main(): torch_quickstart as the
+           JAX package's quickstart sizes it (reduced olmo-1b, 8 steps, then 6
+           requests over 3 slots, then the simulator); torch_serve_e2e with
+           --full --arch qwen2.5-3b, 12 requests over 4 slots; torch_train_e2e
+           at its 100M model, 40 steps, once whole (saving at its end alone)
+           and once with a checkpoint every 10, preempted at 20 (exit code 17)
+           and run again on the same directory, which resumes from step 20:
+           its 20 losses must equal the whole run's steps 21-40 bit for bit.
+           Asserts each script's bf16 kernel launches exactly and no fp32
+           launch; prints per script the wall seconds, tokens/s, launches by
+           route and peak memory, and the train script's last save and its
+           restore in seconds. Then the step that the JAX package's manager
+           wrote, committed under tests/data/jax_ckpt_olmo-1b (olmo-1b
+           reduced, step 2), restored on the card into plain tensors and into
+           DTensors on a (1, 1) mesh as launch/train.py restores it: read in
+           the JAX layout, every leaf bit for bit the CPU restore's. The
+           kernels phase's grid holds each twin's attention shapes
   cost     the eager cost counter (utils/cost.py) against the card: four steps
            at full width, each counted twice, once as it runs on the card and
            once on meta tensors of the same shapes (api.init(cfg,
@@ -165,6 +183,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import multiprocessing
 import os
@@ -177,10 +196,12 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch import tree                                  # noqa: E402
+from repro_torch import compat, tree                          # noqa: E402
+from repro_torch.ckpt.manager import CheckpointManager        # noqa: E402
 from repro_torch.configs import registry                      # noqa: E402
 from repro_torch.configs.llama3 import AttnWorkload           # noqa: E402
 from repro_torch.core import analytical                       # noqa: E402
@@ -235,6 +256,10 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 4, 2, 12, 12, 16),         # the launcher's default (reduced) width
     (1, 48, 8, 512, 512, 128),     # dbrx-132b's prefill, G = 6
     (1, 32, 32, 512, 512, 112),    # zamba2-7b's shared block's prefill, G = 1, D 112
+    (8, 4, 4, 32, 32, 16),         # the quickstart twin's training forward (olmo-1b reduced)
+    (1, 4, 4, 8, 8, 16),           # its prefill: one 8-token prompt
+    (1, 16, 2, 16, 16, 128),       # serve_e2e twin: full-width qwen2.5-3b's 16-token prefill
+    (4, 12, 12, 128, 128, 64),     # the train twin's 100M model, one microbatch
 ]
 FWD_STAGES = [  # bf16, both masks, at every ring depth the forward is built with
     (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
@@ -265,6 +290,9 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (4, 32, 32, 1024, 112, 520),   # zamba2-7b's decode step, G = 1, D 112
     (4, 20, 20, 128, 64, 80),      # whisper-large-v3's decoder self-attention step
     (4, 20, 20, 1500, 64, 1500),   # its cross-attention step: the full encoder rows
+    (3, 4, 4, 64, 16, 12),         # the quickstart twin's last decode step, 3 slots
+    (4, 16, 2, 64, 128, 17),       # serve_e2e twin's decode: its first and last cache length
+    (4, 16, 2, 64, 128, 24),
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -2513,6 +2541,141 @@ def phase_cost(smi):
                     for r in rows}})
 
 
+EXAMPLES_STEPS, EXAMPLES_CKPT_EVERY, EXAMPLES_PREEMPT = 40, 10, 20   # the train twin, 100M
+# a step that the JAX package's manager wrote (tests/test_torch_ckpt_jax.py makes
+# it): olmo-1b reduced after 2 train steps, fp32 state in the stacked layout
+JAX_CKPT = dict(dir=os.path.join("tests", "data", "jax_ckpt_olmo-1b"), step=2, arch="olmo-1b")
+
+
+def restore_jax_checkpoint():
+    """The committed JAX-layout step restored on the card as the launcher restores
+    it, into plain tensors and into DTensors on a (1, 1) mesh
+    (``trainer.shard_state``): the layout read must be the JAX one and every leaf
+    bit for bit the CPU restore's. Returns the seconds of each restore."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), JAX_CKPT["dir"])
+    cfg, run, step = registry.get(JAX_CKPT["arch"]).reduced(), trainer.RunConfig(), JAX_CKPT["step"]
+    mgr = CheckpointManager(path, writer=False)
+    cpu = trainer.init_state(cfg, run, 0, device="cpu")
+    want = tree.leaves(mgr.restore(step, cpu, stacked=compat.jax_layout(cpu)))
+
+    def restored(target):
+        stacked = compat.jax_layout(target)
+        if mgr.layout(step, target, stacked) != "jax":
+            raise AssertionError(f"{path}: not read in the JAX layout")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = mgr.restore(step, target, stacked=stacked)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for (p, got), w in zip(tree.leaves_with_paths(state), want):
+            full = got.full_tensor() if isinstance(got, DTensor) else got
+            if full.device.type != "cuda" or full.requires_grad != w.requires_grad or \
+                    not torch.equal(full.detach().cpu().view(-1).view(torch.uint8),
+                                    w.detach().view(-1).view(torch.uint8)):
+                raise AssertionError(f"{path}: leaf {p} differs from the CPU restore")
+        return seconds, len(want)
+
+    out = {"dir": JAX_CKPT["dir"], "step": step, "layout": "jax"}
+    out["restore_s"], out["leaves"] = restored(trainer.init_state(cfg, run, 0, device=DEV))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="jax_ckpt_", dir=root)
+    dist.init_process_group("nccl", init_method=f"file://{work}/store", rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out["restore_s_mesh_1x1"] = restored(trainer.shard_state(
+            cfg, trainer.init_state(cfg, run, 0, device=DEV), mesh))[0]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def run_example(name, argv):
+    """``examples/<name>.py``'s ``main(argv)`` on the card: (its result, or
+    ``None`` after ``SystemExit``; a row of the exit code, wall seconds,
+    launches by route and peak memory)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result, code = None, 0
+    try:
+        result = mod.main(argv)
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+    row = {"exit_code": code, "wall_seconds": time.perf_counter() - t0,
+           "launches_sm90": {"flash_fwd": fa.launches_sm90, "flash_decode": fd.launches_sm90},
+           "launches_f32": {"flash_fwd": fa.launches_f32, "flash_decode": fd.launches_f32},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if result is not None:
+        row["tokens_per_s"] = result["tokens_per_s"]
+    torch.cuda.empty_cache()
+    return result, row
+
+
+def phase_examples(kernels):
+    rows = {}
+    _, rows["quickstart"] = run_example("torch_quickstart", ["--device", DEV])
+    serve, rows["serve_e2e"] = run_example(
+        "torch_serve_e2e", ["--device", DEV, "--full", "--arch", "qwen2.5-3b",
+                            "--requests", "12", "--slots", "4"])
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="examples_", dir=root)
+    try:
+        train = ["--steps", str(EXAMPLES_STEPS), "--device", DEV]
+        # the whole run saves only at its end: its tokens/s has no save beside it
+        whole, rows["train_e2e_whole"] = run_example(
+            "torch_train_e2e", train + ["--ckpt-every", str(EXAMPLES_STEPS + 1),
+                                        "--ckpt-dir", os.path.join(work, "whole")])
+        again = train + ["--ckpt-every", str(EXAMPLES_CKPT_EVERY),
+                         "--ckpt-dir", os.path.join(work, "preempted")]
+        _, rows["train_e2e_preempted"] = run_example(
+            "torch_train_e2e", again + ["--preempt-at", str(EXAMPLES_PREEMPT)])
+        resumed, rows["train_e2e_resumed"] = run_example("torch_train_e2e", again)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    jax_ckpt = restore_jax_checkpoint()
+    L_serve, L_train, steps = registry.get("qwen2.5-3b").num_layers, 8, EXAMPLES_STEPS
+    # bf16 forward and decode launches: the quickstart trains the reduced olmo-1b's
+    # 2 layers 8 steps, takes step 0's loss again, prefills 6 requests and decodes
+    # 8 engine steps (3 slots, 4 tokens each); the train twin runs two
+    # microbatches a step without remat, one forward launch a layer each
+    want = {"quickstart": (8 * 2 + 2 + 6 * 2, 8 * 2),
+            "serve_e2e": (12 * L_serve, serve["steps"] * L_serve),
+            "train_e2e_whole": (2 * L_train * steps, 0),
+            "train_e2e_preempted": (2 * L_train * EXAMPLES_PREEMPT, 0),
+            "train_e2e_resumed": (2 * L_train * (steps - EXAMPLES_PREEMPT), 0)}
+    equal = resumed["losses"] == whole["losses"][EXAMPLES_PREEMPT:]
+    emit({"phase": "examples", "scripts": rows, "resumed_losses_equal": equal,
+          "train_e2e_losses": whole["losses"], "train_e2e_resumed_losses": resumed["losses"],
+          "train_e2e_save_seconds": {"whole": whole["save_seconds"],
+                                     "resumed": resumed["save_seconds"]},
+          "train_e2e_restore_seconds": resumed["restore_seconds"],
+          "jax_checkpoint": jax_ckpt})
+    for name, row in rows.items():
+        got = (row["launches_sm90"]["flash_fwd"], row["launches_sm90"]["flash_decode"])
+        if got != want[name] or any(row["launches_f32"].values()):
+            raise AssertionError(f"{name}: bf16 forward / decode launches {got}, want "
+                                 f"{want[name]}; fp32 {row['launches_f32']}")
+    code = rows["train_e2e_preempted"]["exit_code"]
+    if code != 17 or resumed["start_step"] != EXAMPLES_PREEMPT:
+        raise AssertionError(f"preempted run exit {code}, resumed from {resumed['start_step']}")
+    if not equal:
+        raise AssertionError("the resumed run's losses differ from the whole run's")
+    for kern in kernels:
+        kern["launches_examples"] = sum(
+            row["launches_sm90"].get(kern["name"], 0) for row in rows.values())
+
+
 def profiled(fn, top=12, watch=()):
     """Wall time of ``fn`` (untraced), then its device-busy time and top kernels (traced).
 
@@ -2574,7 +2737,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,sim,plan,serve,path,path_f32,moe,hybrid,"
-                            "encdec,ssm,train,parallel,cost")
+                            "encdec,ssm,train,parallel,examples,cost")
     ap.add_argument("--ptxas", action="store_true", help="print the compiler's resource report")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -2611,6 +2774,8 @@ def main(argv=None):
         phase_train(kernels)
     if "parallel" in phases:
         phase_parallel(kernels)
+    if "examples" in phases:
+        phase_examples(kernels)
     if "cost" in phases:
         phase_cost(smi)
     if "profile" in phases:
@@ -2618,7 +2783,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     complete = all(p in phases for p in ("build", "kernels", "sim", "plan", "serve", "path",
                                          "path_f32", "moe", "hybrid", "encdec", "ssm", "train",
-                                         "parallel", "cost"))
+                                         "parallel", "examples", "cost"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": complete, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ placed by ``parallel.sharding.param_specs``; each rank trains on its rows of
 the batch (``trainer.make_train_step(..., mesh=)``), every family partitioned
 over ``model`` (ROADMAP A1, A1b). Only rank 0 prints and writes checkpoints;
 every rank takes part in gathering them, and a checkpoint restores under
-another ``(dp, tp)``.
+another ``(dp, tp)``. The run resumes from the latest step in ``--ckpt-dir``,
+whether the port wrote it or the JAX launcher did
+(``CheckpointManager.restore`` with ``compat.jax_layout``).
 
 Every ``--arch`` value trains: dense, moe, vlm, hybrid, ssm and encdec (the
 loss adds 0.01 x the MoE load-balance loss; an encdec batch carries the stub
@@ -47,6 +49,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch import compat
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.configs.llama3 import AttnWorkload
@@ -176,10 +179,16 @@ def _train(args, device):
     state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device=device), mesh)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep_last=2, writer=lead)
-    start = 0
-    if ckpt.latest_step() is not None:
-        start, state = ckpt.restore_latest(state)
+    # a step the JAX launcher wrote resumes too; with the same --steps its
+    # learning-rate schedule goes on, and DataIterator gives the same batches
+    stacked = compat.jax_layout(state)
+    start, restored = ckpt.restore_latest(state, stacked=stacked)
+    if start is None:
+        start = 0
+    else:
         say(f"[restart] resumed from step {start}")
+        say(f"[restart] read the {ckpt.layout(start, state, stacked)} checkpoint layout")
+        state = restored
 
     # straggler deadline: the first step's time (set below) times the factor;
     # the simulator's prediction is printed beside it

@@ -68,6 +68,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distrib
 from repro_torch import tree
 from repro_torch.models import api, layers
 from repro_torch.models.attention import knob_attention
+from repro_torch.models.transformer import JAX_STACKED_DIMS
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
@@ -150,15 +151,32 @@ def init_state(cfg, run: RunConfig, seed: Union[int, torch.Generator] = 0, *,
     return TrainState(params=params, opt_state=opt.init(params), ef_error=ef)
 
 
-def _quantize_int8(g, err):
+def _quantize_int8(g, err, amax=None):
     """Error-feedback int8 compression: models a compressed gradient
     all-reduce (the quantize->sum->dequantize pipeline); the quantization
-    residual is fed back into the next step."""
+    residual is fed back into the next step. ``amax`` is the largest
+    ``|g + err|`` the scale is set by (by default ``g``'s own)."""
     gf = g.float() + err
-    scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
+    if amax is None:
+        amax = torch.max(torch.abs(gf))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127)
     deq = q * scale
     return deq, gf - deq
+
+
+def _compress_int8(grads, ef):
+    """``_quantize_int8`` of each gradient leaf with its error feedback (the
+    tree ``ef``), on one scale for all the layers of a stacked subtree: the
+    reference quantizes each leaf of its layout, where a block leaf holds every
+    layer (``transformer.JAX_STACKED_DIMS``)."""
+    errs = tree.leaves_with_paths(ef)
+    group = [path[:1] + path[1 + JAX_STACKED_DIMS.get(path[0], 0):] for path, _ in errs]
+    amax = {}
+    for key, g, (_, e) in zip(group, grads, errs):
+        m = torch.max(torch.abs(g.float() + e))
+        amax[key] = m if key not in amax else torch.maximum(amax[key], m)
+    return [_quantize_int8(g, e, amax[key]) for key, g, (_, e) in zip(group, grads, errs)]
 
 
 def make_loss_fn(cfg, run: RunConfig, mode: Optional[str] = None):
@@ -340,7 +358,7 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
 
         ef = state.ef_error
         if run.grad_compress == "int8":
-            pairs = [_quantize_int8(g, e) for g, e in zip(grads, tree.leaves(ef))]
+            pairs = _compress_int8(grads, ef)
             grads = [deq for deq, _ in pairs]
             ef = tree.rebuild(ef, [res for _, res in pairs])
 

@@ -5,6 +5,7 @@ import dataclasses
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,8 @@ from repro_torch.configs import registry as tregistry
 from repro_torch.models import api as tapi
 
 from test_torch_models import numpy_params
+
+ROOT = Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "olmo-1b", "llama3-8b", "minicpm-2b"])
@@ -99,7 +102,7 @@ def test_config_registry_and_workloads_are_equal_copies():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
         for n in names:
@@ -123,15 +126,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.launch.mesh", "repro_torch.launch.specs"}
         missing = need - set(names)
         assert not missing, missing
+        for name in ("torch_quickstart", "torch_serve_e2e", "torch_train_e2e"):
+            spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-               or m == "repro" or m.startswith("repro.")]
+               or m == "repro" or m.startswith("repro.") or m == "ml_dtypes"]
         assert not bad, bad
         assert "triton" not in sys.modules
         print("imported", len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("imported")
 

@@ -11,7 +11,9 @@ keys: ``arch``, ``mesh`` (data, model), ``batch``, ``seq``, ``steps``,
 ``microbatches``; optional ``replace`` (config fields; the reduced config in
 fp32 compute is the default), ``residual`` (the activation scope's residual
 spec each step runs in, as a train cell's plan gives it:
-``["data", "model", null]``), ``store``, ``out``, ``ckpt``.
+``["data", "model", null]``), ``resume`` (a checkpoint directory whose latest
+step, in the port's layout or the JAX package's, the run restores and trains on
+from, up to ``steps``), ``store``, ``out``, ``ckpt``.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         tests/torch_sharded_worker.py --chip --arch olmo-1b --tp 4 --out F.json
@@ -37,7 +39,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-from repro_torch import tree
+from repro_torch import compat, tree
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.data.synthetic import DataIterator
@@ -192,16 +194,24 @@ def run_job(rank, world, job):
                                                                 else (e,))]))
             assert isinstance(p, DTensor) and list(p.to_local().shape) == want, (p.shape, spec)
 
+    start, resumed = 0, None
+    if "resume" in job:
+        mgr = CheckpointManager(job["resume"], writer=False)
+        stacked = compat.jax_layout(state)
+        start, restored = mgr.restore_latest(state, stacked=stacked)
+        resumed = {"step": start, "layout": mgr.layout(start, state, stacked)}
+        state = restored
+
     residual = job.get("residual")
     step = scoped(trainer.make_train_step(cfg, run, mesh=mesh), residual)
-    data = DataIterator(cfg, batch=job["batch"], seq=job["seq"])
+    data = DataIterator(cfg, batch=job["batch"], seq=job["seq"], start_step=start)
     metrics = []
     # the partitioned route: no parameter gathered whole, and the inputs'
     # gradients summed over model: all-reduced where the residual is whole;
     # under sequence parallelism the sequence operators ran (the dense jobs'
     # test also asks for reduce-scatters to the rows)
     with Recorder(cfg) as rec:
-        for _ in range(job["steps"]):
+        for _ in range(start, job["steps"]):
             batch = trainer.shard_batch({k: torch.from_numpy(v) for k, v in next(data).items()},
                                         mesh, job["microbatches"])
             state, m = step(state, batch)
@@ -218,7 +228,7 @@ def run_job(rank, world, job):
     # step updates in place
     full = [p.full_tensor().detach().numpy().copy() for p in tree.leaves(state.params)]
 
-    out = {"metrics": metrics, "model_reduces": rec.model_sums,
+    out = {"metrics": metrics, "resumed": resumed, "model_reduces": rec.model_sums,
            "seq_scatters": rec.seq_scatters, "seq_ops": rec.seq_ops, "seq_parallel": seq,
            "seq_stacks": stacks, "block_rows": sorted(rec.block_rows),
            "stack_rows": {k: sorted(v) for k, v in rec.stack_rows.items()},

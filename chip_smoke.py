@@ -21,7 +21,15 @@ Phases, each printing one JSON line:
            yardstick only: the port never calls it) and its roofline bound.
            Kernel and library times are device times (kernel durations from
            torch.profiler); wrapper_ms is the host-clocked time of a call
-           through the wrapper; a decode call must run one device kernel
+           through the wrapper; a decode call must run one device kernel.
+           Both decode kernels also over a cache split by sequence into 4
+           blocks, as the sharded decode runs them (at the serving shape,
+           cache_len 520, and at 32768; one block cut mid-tile, one empty):
+           return_partials=True on each block with a filled row, nothing
+           launched for the empty one, the partials merged by
+           attention.merge_partial_attn, held to the plain version's
+           normalised partials over the whole cache at the fp32 tolerance for
+           both input types
   sim      the simulator's predictions for the bf16 kernels' timed shapes, one
            line each beside the kernels phase's device time (not timed again)
            and the card's SM clock: simulate_fa3 and analytical.analyze on the
@@ -136,7 +144,12 @@ Phases, each printing one JSON line:
            too), bit for bit with the unsharded trainer and with the same
            launches a step; each prints its depth cut, route, losses, norms,
            step ms, the steps' peak of every run and one more sharded step
-           under the profiler
+           under the profiler. Last, full-width qwen2.5-3b served through the
+           sharded serving steps (serve.decode's mesh=) on the (1, 1) mesh,
+           4 prompts of 512 tokens and 8 new tokens, its parameters placed by
+           serve.decode.init_params: tokens and every step's logits equal
+           the unsharded steps' bit for bit, launches asserted (one bf16
+           forward a layer, one bf16 decode a layer a step) and printed
   examples the port's example scripts (examples/torch_*.py) on the card, in
            this process, each through its main(): torch_quickstart as the
            JAX package's quickstart sizes it (reduced olmo-1b, 8 steps, then 6
@@ -220,8 +233,9 @@ from repro_torch.launch import specs                          # noqa: E402
 from repro_torch.launch import train as launch_train          # noqa: E402
 from repro_torch.launch.mesh import make_mesh                 # noqa: E402
 from repro_torch.models import api, mamba, moe, rwkv          # noqa: E402
-from repro_torch.models.attention import knob_attention       # noqa: E402
+from repro_torch.models.attention import knob_attention, merge_partial_attn  # noqa: E402
 from repro_torch.parallel import ctx as pctx                  # noqa: E402
+from repro_torch.serve import decode as serve_decode           # noqa: E402
 from repro_torch.serve.decode import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine     # noqa: E402
 from repro_torch.data.synthetic import DataIterator, token_batch  # noqa: E402
@@ -338,6 +352,12 @@ SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
 WHISPER_DEC = dict(B=4, H=20, Hkv=20, S_max=1500, D=64, clen=1500, layers=32)  # cross
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
+# a cache split by sequence into 4 blocks (the sharded decode, models/attention.py's
+# _decode_blocks): at the serving shape block 2 holds 8 rows (half a 16-row tile)
+# and block 3 none; at 32768 block 2 holds 10918 rows (6 past a tile) and block 3 none
+MERGE_DEC = [dict(B=4, H=16, Hkv=2, D=128, clen=520, block=256),
+             dict(B=4, H=16, Hkv=2, D=128, clen=32768, block=10925)]
+SERVE_PARALLEL = dict(arch="qwen2.5-3b", batch=4, prompt_len=512, new_tokens=8)
 COST = dict(arch="qwen2.5-3b", prompt_len=512, slots=4, clen=520, max_seq=1024)
 BOUND_OVER_BUSY = 1.05  # a roofline bound above the card's own busy time means a count or a
                         # constant is wrong; 5 % for the profiler's own spread
@@ -655,6 +675,52 @@ def time_decode(rng, dt, s=SERVE_DEC):
     return dec, worst
 
 
+def check_merged_partials(rng, dt):
+    """The decode kernel of ``dt`` over a cache split by sequence into 4 blocks
+    (``MERGE_DEC``), as the sharded decode step runs it: each block with a
+    filled row launches once with ``return_partials=True`` on its rows, an
+    empty block launches nothing and gives ``(0, -inf, 0)``, and the partials
+    are merged by ``attention.merge_partial_attn``. The fp32 merge is held to
+    the plain version's normalised partials over the whole cache at the fp32
+    tolerance for both input types, as the grid holds the partials: neither
+    carries a rounding to the query type. Returns one row a shape."""
+    rows = []
+    for s in MERGE_DEC:
+        n, clen = s["block"], s["clen"]
+        k = randn(rng, (s["B"], 4 * n, s["Hkv"], s["D"]), dt)
+        v = randn(rng, (s["B"], 4 * n, s["Hkv"], s["D"]), dt)
+        q = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
+        acc_w, _, l_w = ops.decode_forward(q, k, v, clen, mode="reference",
+                                           return_partials=True)
+        want = acc_w / l_w[..., None]
+        f32 = dict(dtype=torch.float32, device=DEV)
+        parts, lens = [], []
+        n0 = fd.launches
+        for b in range(4):
+            c = min(max(clen - b * n, 0), n)
+            lens.append(c)
+            if c:
+                parts.append(ops.decode_forward(q, k[:, b * n:(b + 1) * n],
+                                                v[:, b * n:(b + 1) * n], c,
+                                                return_partials=True))
+            else:
+                parts.append((torch.zeros((s["B"], s["H"], s["D"]), **f32),
+                              torch.full((s["B"], s["H"]), -float("inf"), **f32),
+                              torch.zeros((s["B"], s["H"]), **f32)))
+        launched = fd.launches - n0
+        got = merge_partial_attn(*(torch.stack(t) for t in zip(*parts)))
+        torch.cuda.synchronize()
+        what = f"flash_decode {dt} merged over blocks {lens}"
+        err = compare(got, want, torch.float32, what)
+        if launched != sum(c > 0 for c in lens) or 0 not in lens or lens[2] % fd.TILE_SM90 == 0:
+            raise AssertionError(f"{what}: {launched} launches; want one a block with "
+                                 "a filled row, an empty block and one cut mid-tile")
+        rows.append({"at": "B{B} H{H} Hkv{Hkv} D{D} cache_len{clen}".format(**s),
+                     "block_rows": lens, "launches": launched, "max_abs_err": err})
+        del k, v, q, acc_w, l_w, want, parts, got
+    return rows
+
+
 def time_long_decode(rng, dt):
     """The decode kernel of ``dt`` at a 32k cache (K/V beyond L2: 134 MB in
     bf16, 268 MB in fp32): device time, its share of the memory rate, the
@@ -768,6 +834,13 @@ def phase_kernels():
         cases[name] += 2
         del q, kc, vc, got, want, acc, m, l, acc_w, m_w, l_w
 
+    merged = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "flash_decode" if dtype == torch.bfloat16 else "flash_decode_f32"
+        merged[name] = check_merged_partials(rng, dtype)
+        worst[name] = max(worst[name], max(r["max_abs_err"] for r in merged[name]))
+        cases[name] += len(merged[name])
+
     # the serving shapes, in the model-side layout, through ops (strided views);
     # the fp32 kernel is timed at the same shape in fp32
     s = SERVE_FWD
@@ -850,6 +923,7 @@ def phase_kernels():
         cases[name] += 2
 
     emit({"phase": "kernels", "cases": cases, "max_abs_err": worst,
+          "merged_decode_partials": merged,
           "flash_fwd_max_abs_err_vs_pv_bf16_plain": worst_pv_bf16,
           "tolerance": {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}})
     serve_fwd = "B1 H16 Hkv2 L=S=512 D128 causal"
@@ -2201,6 +2275,7 @@ def phase_parallel(kernels):
         scoped, seq = seq_parallel_scope(cfg, run, mesh, batches)
         family_launches = {spec["arch"]: parallel_family(spec, mesh, n)
                            for spec in PARALLEL_FAMILIES}
+        serve_launches = parallel_serve(mesh)
     finally:
         trainer.make_train_step = make_step
         dist.destroy_process_group()
@@ -2268,6 +2343,82 @@ def phase_parallel(kernels):
         if kern["name"] == "flash_fwd":
             kern["launches_parallel"] = counts["flash_fwd"]
             kern["launches_parallel_families"] = family_launches
+        if kern["name"] in serve_launches:
+            kern["launches_parallel_serve"] = serve_launches[kern["name"]]
+
+
+def served_logits(prefill, step, params, batch, n):
+    """The prefill and ``n`` decode steps: (greedy tokens (B, 1 + n), the
+    logits each token was taken from, the steps' ms)."""
+    seen, greedy = [], serve_decode.greedy
+
+    def rec(logits):
+        seen.append(logits.float().reshape(logits.shape[0], -1).clone())
+        return greedy(logits)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    serve_decode.greedy, ms = rec, []
+    try:
+        tok, cache = timed(prefill, params, batch)
+        toks = [tok]
+        for _ in range(n):
+            tok, cache = timed(step, params, cache, tok)
+            toks.append(tok)
+    finally:
+        serve_decode.greedy = greedy
+    return torch.cat(toks, dim=1), seen, ms
+
+
+def parallel_serve(mesh):
+    """Full-width qwen2.5-3b (bf16) served through the sharded steps
+    (``serve.decode``'s ``mesh=``) on the (1, 1) ``mesh``, its parameters
+    placed by ``serve.decode.init_params``, and through the unsharded steps
+    from ``api.init``'s weights: tokens and every step's logits equal bit for
+    bit, the sharded run's launches of each kernel counted (one bf16 forward
+    a layer, one bf16 decode a layer a step). Returns those counts."""
+    spec = SERVE_PARALLEL
+    cfg = registry.get(spec["arch"])
+    B, P, n = spec["batch"], spec["prompt_len"], spec["new_tokens"]
+    max_seq = P + n + 8
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = serve_decode.init_params(cfg, mesh, 0, device=DEV)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts()
+    sharded = served_logits(make_prefill_step(cfg, max_seq=max_seq, mesh=mesh),
+                            make_serve_step(cfg, mesh=mesh), params, {"tokens": toks}, n)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    whole = api.cast_params(cfg, api.init(cfg, 0, device=DEV))
+    plain = served_logits(make_prefill_step(cfg, max_seq=max_seq), make_serve_step(cfg), whole,
+                          {"tokens": toks}, n)
+    del whole
+    torch.cuda.empty_cache()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(sharded[1], plain[1])]
+    L = cfg.num_layers
+    emit({"phase": "parallel_serve", "model": cfg.name, "layers": L,
+          "mesh": {"data": 1, "model": 1}, "batch": B, "prompt_len": P, "new_tokens": n,
+          "launches": counts, "logits_equal": equal,
+          "tokens_equal": bool(torch.equal(sharded[0], plain[0])),
+          "sharded_ms": {"prefill": sharded[2][0], "decode": sharded[2][1:]},
+          "unsharded_ms": {"prefill": plain[2][0], "decode": plain[2][1:]},
+          "init_peak_memory_gb": init_peak, "peak_memory_gb": peak})
+    if not all(equal) or not torch.equal(sharded[0], plain[0]):
+        raise AssertionError(f"parallel_serve: the sharded steps on (1, 1) are not the "
+                             f"unsharded ones bit for bit: logits equal {equal}")
+    want = {"flash_fwd": L, "flash_fwd_f32": 0, "flash_decode": L * n, "flash_decode_f32": 0}
+    if counts != want:
+        raise AssertionError(f"parallel_serve: launches {counts}, want {want}")
+    return counts
 
 
 def seq_parallel_scope(cfg, run, mesh, batches):

@@ -18,12 +18,16 @@ step (``xla_flops_per_device``, ``xla_bytes_per_device``,
 takes the place of the two times. ``mem.temp_bytes`` is the counter's peak of
 the bytes the step created, ``mem.peak_bytes`` that plus the arguments' bytes.
 
-Serving cells (ROADMAP C29): the port has no sharded serving step, so each
-parameter is gathered from its placements (the all-gathers are counted) and
-each rank runs the unsharded step at full width over the batch and cache rows
-its data coordinates give it; where the rows do not divide over the data
-ranks, every rank runs the whole batch. A decode cell is one new token against
-a full cache: the cache's ``idx`` is set to ``seq_len - 1``.
+Serving cells. The dense, vlm and moe families (``sharding.SERVE_FAMILIES``)
+run the sharded serving steps (``serve.decode``'s ``mesh=``) on the cell's
+arguments placed as ``DTensor``s: the parameters in the serving layout, the
+batch, the cache and the tokens by their specs; nothing is gathered whole.
+The hybrid, ssm and encdec families keep ROADMAP C29's route: each parameter
+is gathered from its placements (the all-gathers are counted) and each rank
+runs the unsharded step at full width over the batch and cache rows its data
+coordinates give it, or the whole batch where the rows do not divide over
+the data ranks. A decode cell is one new token against a full cache: the
+cache's ``idx`` is set to ``seq_len - 1``.
 """
 from __future__ import annotations
 
@@ -71,8 +75,23 @@ def _place(args, shardings, mesh, requires_grad=False):
         for x, pl in zip(tree.leaves(args), tree.leaves(shardings, is_leaf=shd.is_spec))])
 
 
+def _sharded_serve_args(shape, cell, mesh):
+    """The arguments of a sharded serving cell, each placed by its entry of
+    ``in_shardings``; a decode cell's cache at ``idx`` ``seq_len - 1``."""
+    if shape.kind == "prefill":
+        params, batch = cell["args"]
+        p_sh, b_sh = cell["in_shardings"]
+        return _place(params, p_sh, mesh), _place(batch, b_sh, mesh)
+    params, cache, tokens = cell["args"]
+    p_sh, c_sh, t_sh = cell["in_shardings"]
+    placed = _place({k: cache[k] for k in c_sh}, c_sh, mesh)
+    placed["idx"] = shape.seq_len - 1
+    return (_place(params, p_sh, mesh), placed,
+            distribute_tensor(tokens, mesh, t_sh, src_data_rank=None))
+
+
 def _local_rows(n: int, mesh) -> int:
-    """The batch rows a rank runs in a serving cell (ROADMAP C29)."""
+    """The batch rows a rank runs in a serving cell of C29's route."""
     fsdp = shd.fsdp_size(mesh)
     return n // fsdp if n % fsdp == 0 else n
 
@@ -106,9 +125,10 @@ def _serve_args(cfg, shape, cell, mesh):
 def run_cell(cfg, shape, mesh, mesh_kind: str, plan=None) -> dict:
     t0 = time.time()
     cell = specs_lib.build_cell(cfg, shape, mesh, plan=plan)
-    if shape.kind == "train":
-        args = _train_args(cell, mesh)
-        arg_bytes = sum(nbytes(x) for x in tree.leaves(args))
+    if shape.kind == "train" or cfg.family in shd.SERVE_FAMILIES:
+        args = (_train_args(cell, mesh) if shape.kind == "train"
+                else _sharded_serve_args(shape, cell, mesh))
+        arg_bytes = sum(nbytes(x) for x in tree.leaves(args) if isinstance(x, torch.Tensor))
         with CostCounter() as c:
             out = cell["fn"](*args)
     else:

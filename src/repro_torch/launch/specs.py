@@ -13,7 +13,16 @@ placements leaves are tuples, ``sharding.is_spec``), ``donate``, ``plan`` and
 ``meta``. The train step takes its state as ``DTensor``s on a ``DeviceMesh``
 (``trainer.make_train_step(..., mesh=)``); it brings each gradient back in its
 parameter's placements whatever ``grad_acc_sharded`` says, as the reference
-does with that knob on.
+does with that knob on. A serving cell of the dense, vlm and moe families
+(``sharding.SERVE_FAMILIES``) hands over the sharded serving steps
+(``serve.decode``'s ``mesh=``, ``seq_shard`` the plan's
+``seq_shard_cache``), its parameters placed in the serving layout
+(``sharding.serve_specs``: whole over the data axes, where the reference
+places them by ``param_specs``), its cache by ``cache_specs``. The steps
+keep the residual whole on every model rank: the ``seq_shard_acts`` that
+``REPRO_PERF`` sets for command-r-plus-104b's prefill is not applied there
+(ROADMAP C38). The other families' serving cells keep the reference's
+placements and the unsharded steps (ROADMAP C29).
 """
 from __future__ import annotations
 
@@ -226,13 +235,20 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
             meta=dict(kind="train", tokens=shape.tokens))
 
     serve_params = _cast_float(param_struct, torch.bfloat16)
+    # the dense, vlm and moe families serve through the sharded steps, their
+    # parameters held in the serving layout; the others' cells keep the
+    # reference's placements and the unsharded steps (ROADMAP C29)
+    sharded = cfg.family in shd.SERVE_FAMILIES
+    if sharded:
+        pshard = _placed(shd.serve_specs(cfg, param_struct, mesh), mesh)
+    step_mesh = dict(mesh=mesh, seq_shard=plan.seq_shard_cache) if sharded else {}
 
     if shape.kind == "prefill":
         step = _with_activation_ctx(
             serve_decode.make_prefill_step(
                 cfg, max_seq=shape.seq_len, remat=plan.remat,
                 attn_chunk=plan.attn_chunk, cast_params=plan.cast_params,
-                attn_pv_bf16=plan.attn_pv_bf16),
+                attn_pv_bf16=plan.attn_pv_bf16, **step_mesh),
             plan, mesh, cfg)
         return dict(
             fn=step, args=(serve_params, bstruct),
@@ -253,7 +269,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     tok_struct = _meta((B, 1), torch.int32)
     tok_shard = shd.placements((None,) if plan.seq_shard_cache else shd.batch_spec(mesh),
                                mesh)
-    step = _with_activation_ctx(serve_decode.make_serve_step(cfg), plan, mesh, cfg)
+    step = _with_activation_ctx(serve_decode.make_serve_step(cfg, **step_mesh), plan, mesh,
+                                cfg)
     return dict(
         fn=step, args=(serve_params, cache_struct, tok_struct),
         in_shardings=(pshard, cshard, tok_shard),

@@ -33,12 +33,13 @@ def require_ported(cfg):
         transformer._require_ported(cfg)
 
 
-def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
+def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda", place=None):
     """Seeded fp32 parameters on ``device``. ``seed`` may be a ``torch.Generator``
     that already lives on that device. On ``device="meta"`` the tree holds the
     parameters' shapes and dtypes only (the counterpart of the reference's
     ``jax.eval_shape(lambda: api.init(cfg, key))``): nothing is drawn, so a model
-    of any width builds in no memory, and ``seed`` is ignored."""
+    of any width builds in no memory, and ``seed`` is ignored. ``place`` is
+    ``transformer.init_lm``'s (the LM families only)."""
     require_ported(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -47,8 +48,10 @@ def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda"):
         gen = (layers.SHAPE_ONLY if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(int(seed)))
     if cfg.family == "encdec":
+        if place is not None:
+            raise NotImplementedError("place= is the LM families' (transformer.init_lm)")
         return encdec.init_encdec(cfg, gen)
-    return transformer.init_lm(cfg, gen)
+    return transformer.init_lm(cfg, gen, place)
 
 
 def cast_params(cfg, params, dtype=None, device=None):
@@ -104,11 +107,14 @@ def decode(cfg, params, cache, tokens, *, mode=None):
 
 
 def init_cache(cfg, batch: int, max_seq: int, *, s_enc: int = 0, dtype=torch.bfloat16,
-               device="cuda"):
+               device="cuda", kv_heads=None):
     """An empty cache on ``device``; an encdec model's cross K/V holds ``s_enc``
-    encoder rows (``cfg.frontend_len`` by default)."""
+    encoder rows (``cfg.frontend_len`` by default). ``kv_heads``: an LM
+    family's K/V stacks hold that many kv heads (a rank's block of a cache
+    placed over a mesh; ``cfg.num_kv_heads`` by default)."""
     device = resolve_device(device)
     if cfg.family == "encdec":
         return encdec.init_dec_cache(cfg, batch, max_seq, s_enc or cfg.frontend_len,
                                      dtype=dtype, device=device)
-    return transformer.init_cache(cfg, batch, max_seq, dtype=dtype, device=device)
+    return transformer.init_cache(cfg, batch, max_seq, dtype=dtype, device=device,
+                                  kv_heads=kv_heads)

@@ -261,6 +261,60 @@ def project_cross_kv(p, enc_h, cfg):
     return _project_kv(kv, enc_h, cfg, layers.dense)
 
 
+def _heads_of_rank(cfg, n_q: int, k, v):
+    """Of ``k`` / ``v`` (B, S, Hkv, D) holding every kv head, those of this
+    model rank's ``n_q`` q heads (``_kv_heads_of_q_heads``)."""
+    first, count, index = _kv_heads_of_q_heads(cfg, n_q, pctx.model_index())
+    k, v = k[:, :, first:first + count], v[:, :, first:first + count]
+    if index is not None:
+        idx = torch.tensor(index, device=k.device)
+        k, v = k[:, :, idx], v[:, :, idx]
+    return k, v
+
+
+def _decode_blocks(p, q, k, v, kv_cache, idx: int, block, cfg, *, split, every_kv, mode):
+    """A decode step over this rank's ``block`` of a serving cache
+    (``parallel.ctx.serving_cache``) whose sequence is split over
+    ``block.seq_axes``, or which holds every kv head while the rank's q heads
+    are a block of them (``every_kv``): the ``wo`` product of the attention
+    output, (B, 1, d).
+
+    The rank whose block holds position ``idx`` writes the new token's K/V
+    there, in place. ``every_kv``: q is gathered over ``model`` first, so that
+    the rank's partials hold every q head. The kernel's fp32 ``(acc, m, l)``
+    partials over the block's filled rows (``clamp(idx + 1 - first, 0,
+    count)``) are gathered over the axes that split the sequence and merged
+    by ``merge_partial_attn`` (the maximum ``m``, ``acc`` and ``l`` rescaled,
+    normalised once). A block with no filled row launches nothing: it gives
+    ``(0, -inf, 0)``, which the merge weighs by ``exp(-inf) = 0`` against
+    the finite maximum of the block holding position 0. With every head's
+    output on every rank, ``wo`` computes the rank's output columns without
+    gathering its input again (``layers.dense_joined_whole``)."""
+    k_cache, v_cache = kv_cache
+    first, count = block.seq
+    if first <= idx < first + count:
+        k_cache[:, idx - first] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, idx - first] = v[:, 0].to(v_cache.dtype)
+    if every_kv:
+        q = pctx.all_gather(q, 2, pctx.model_group())
+    B, _, H, D = q.shape
+    clen = min(max(idx + 1 - first, 0), count)
+    if clen:
+        acc, m, l = ops.decode_forward(q, k_cache, v_cache, clen, mode=mode,
+                                       return_partials=True)
+    else:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        acc, m, l = (torch.zeros((B, H, D), **f32), torch.full((B, H), -math.inf, **f32),
+                     torch.zeros((B, H), **f32))
+    parts = pctx.cache_seq_gather(torch.cat([acc, m[..., None], l[..., None]], dim=-1))
+    o = merge_partial_attn(parts[..., :D], parts[..., D], parts[..., D + 1])
+    o = o.to(q.dtype).reshape(B, 1, H * D)
+    dt = layers.to_dtype(cfg.compute_dtype)
+    if every_kv:
+        return layers.dense_joined_whole(p["wo"], o, dtype=dt)
+    return (layers.dense_joined if split else layers.dense)(p["wo"], o, dtype=dt)
+
+
 def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
                cross_kv=None, attn_fn=None, use_rope=True, causal=None, mode=None):
     """Returns (out, new_kv) where new_kv is (k, v) of this call's tokens.
@@ -293,9 +347,22 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     the gathered sequence (``parallel.ctx.seq_gather``), and each rank keeps
     its rows of the output, the cross-attention's too. A given ``cross_kv``
     is the whole encoder sequence's.
+
+    Inside ``parallel.ctx.serving_cache`` (the sharded serving steps) the
+    cache is this rank's ``sharding.CacheBlock``: its kv heads, or where they
+    do not split over ``model`` every kv head (the rank then projects them
+    all with the whole ``wk`` / ``wv``, attends with those of its q heads and
+    returns them all for the cache), and its block of the sequence. A decode
+    step over a cache split by sequence, or holding every kv head while the
+    q heads split, takes ``_decode_blocks``.
     """
     hd = cfg.head_dim
     split, H, kv = _rank_heads(p, cfg)
+    block = pctx.cache_block()
+    # a serving cache that holds every kv head on this rank while its q heads
+    # are a block of the model's (the kv heads do not split): the rank
+    # projects every kv head, with the whole wk / wv
+    every_kv = block is not None and split and not pctx.layout().kv_heads
     rows = pctx.seq_parallel() and not split
     if rows:
         x = pctx.seq_gather(x)
@@ -315,11 +382,17 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
         return (pctx.seq_rows(out) if rows else out), None
 
+    if every_kv:
+        kv = (p["wk"], p["wv"], cfg.num_kv_heads, None)
     k, v = _project_kv(kv, x, cfg, proj)
     if use_rope:
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, positions, cfg.rope_theta)
 
+    if kv_cache is not None and block is not None and (block.seq_axes or every_kv):
+        out = _decode_blocks(p, q, k, v, kv_cache, int(cache_index), block, cfg,
+                             split=split, every_kv=every_kv, mode=mode)
+        return out, kv_cache
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
         idx = int(cache_index)
@@ -328,10 +401,11 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         o = ops.decode_forward(q, k_cache, v_cache, idx + L, mode=mode)
         return out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt), (k_cache, v_cache)
 
+    ka, va = _heads_of_rank(cfg, H, k, v) if every_kv else (k, v)
     if attn_fn is not None:
-        o = attn_fn(q, k, v, causal=causal)
+        o = attn_fn(q, ka, va, causal=causal)
     else:
-        o = ops.mha_forward(q, k, v, causal=causal, mode=mode)
+        o = ops.mha_forward(q, ka, va, causal=causal, mode=mode)
     out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
     if rows:
         out = pctx.seq_rows(out)

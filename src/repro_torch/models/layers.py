@@ -29,7 +29,8 @@ of the whole output columns (``seq_columns_to_rows``, an all-to-all, in place
 of the columns' all-gather), and ``embed`` the rank's rows of the lookup.
 ``whole_input`` is the input of products of a tensor every rank holds whole
 (the MoE's dispatched tokens, an RWKV6 mix's gathered input, the encoder
-output the cross-attention projects).
+output the cross-attention projects); ``dense_joined_whole`` the second
+product of a pair whose input every rank holds whole (serving).
 """
 from __future__ import annotations
 
@@ -198,7 +199,12 @@ def whole_input(x):
     """The input of this model rank's ``dense_split`` products of an ``x``
     that every model rank holds whole: an fp32 copy of ``x``, whose gradient
     (the products' fp32 partials, summed over the products and over the
-    model ranks) is rounded once to ``x``'s type."""
+    model ranks) is rounded once to ``x``'s type. Under the serving scope
+    (``parallel.ctx.serving_cache``) ``x`` itself: its steps take no
+    gradient, and the products cast their input to their weights' type
+    either way (``split_mm``)."""
+    if pctx.cache_block() is not None:
+        return x
     return pctx.to_model(x.float())
 
 
@@ -246,6 +252,19 @@ def dense_joined(p, x, *, dtype=torch.bfloat16):
     y = joined_mm(x.to(dtype), p["w"].to(dtype), split=split, join=not seq)
     if seq:
         y = pctx.seq_columns_to_rows(y) if split else pctx.seq_rows(y)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def dense_joined_whole(p, x, *, dtype=torch.bfloat16):
+    """``dense_joined`` of an ``x`` that every model rank already holds whole,
+    all the ranks' blocks of the contraction (a decode step's heads after
+    their merge over a cache split by sequence), without gradient: the same
+    output columns, each one device's, without gathering the input again."""
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if pctx.layout().d_model:
+        y = pctx.all_gather(y, -1, pctx.model_group())
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y

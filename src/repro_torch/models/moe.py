@@ -208,8 +208,14 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     count that is not a whole number of groups raises ``ValueError``. Inside
     ``parallel.ctx.data_parallel`` the reference groups the global batch's
     tokens: a rank whose rows hold fewer than ``group_size`` tokens would form
-    other groups (a group of the reference's spans ranks), and raises
-    ``ValueError`` (ROADMAP C27).
+    other groups (a group of the reference's spans ranks). Under the serving
+    scope (``parallel.ctx.serving_cache``, the sharded serving steps: a
+    decode step's B slots are one group, C17) its tokens are gathered over
+    the data ranks (``parallel.ctx.data_gather``), the global batch's groups
+    routed and dispatched as one device does, and the rank keeps its rows of
+    the output; outside it (training, with or without grad) it raises
+    ``ValueError`` (ROADMAP C27). The load-balance loss is the rank's rows'
+    term either way.
     """
     seq = pctx.seq_parallel()
     B, S, d = x.shape
@@ -217,17 +223,27 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
     E, k = cfg.num_experts, cfg.experts_per_token
     dt = layers.to_dtype(cfg.compute_dtype)
     T = B * S
+    own = B                                           # this data rank's rows
+    span = T < group_size and pctx.data_size() > 1 and pctx.cache_block() is not None
+    if span:                                          # one group over the data ranks
+        x = pctx.data_gather(x)
+        B = x.shape[0]
+        T = B * S
     g = min(group_size, T)
     if T % g:
         raise ValueError(f"moe einsum dispatch: {T} tokens (B={B} x S={S}) do not "
                          f"split into groups of {g}")
-    if T < group_size and pctx.data_size() > 1:
+    if T < group_size and pctx.data_size() > 1 and not span:
         raise ValueError(f"moe einsum dispatch: a data rank's {T} tokens are fewer than "
                          f"a group of {group_size}; the global batch's groups would span "
                          "ranks")
     n_grp = T // g
     w, idx, probs = _routed(p, x, cfg)
-    aux = aux_load_balance_loss(probs, idx, E)
+    if span:
+        aux = aux_load_balance_loss(pctx.data_rows(probs, own * S),
+                                    pctx.data_rows(idx, own * S), E)
+    else:
+        aux = aux_load_balance_loss(probs, idx, E)
 
     cap = max(1, int(g * k / E * cfg.capacity_factor))
     wg_ = w.reshape(n_grp, g, k)
@@ -258,8 +274,8 @@ def moe_apply_einsum(p, x, cfg, *, group_size: int = 512):
         xin = torch.einsum("ngec,ngd->necd", disp, _tokens(x).reshape(n_grp, g, d).to(dt))
     xin = pctx.constrain(xin, "moe_tokens")                     # (n,E,cap,d)
     yout = pctx.constrain(_expert_ffn(p, xin, cfg, dt, sum_grad=not rows), "moe_tokens")
-    y = torch.einsum("ngec,necd->ngd", comb, yout)
-    return y.reshape(B, S, d).to(x.dtype), aux
+    y = torch.einsum("ngec,necd->ngd", comb, yout).reshape(B, S, d)
+    return (pctx.data_rows(y, own) if span else y).to(x.dtype), aux
 
 
 def moe_apply_scatter(p, x, cfg):

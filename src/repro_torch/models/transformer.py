@@ -170,26 +170,40 @@ def _checkpointed(fn, remat):
 # init
 # ---------------------------------------------------------------------------
 
-def init_lm(cfg, gen: torch.Generator):
-    """Seeded parameters in fp32, on the generator's device."""
+def init_lm(cfg, gen: torch.Generator, place=None):
+    """Seeded parameters in fp32, on the generator's device.
+
+    ``place(key, part)``, where given, is handed each part as it is drawn,
+    in the draws' order (``"emb"``, ``"final_norm"``, ``"unembed"``, then
+    each layer of ``"blocks"``; a hybrid's ``"prologue"`` layers, each
+    group's layers as ``"groups"``, ``"shared_attn"``; an ssm's ``"blocks"``
+    and ``"ln0"``) and its result kept in the part's place: a caller that
+    shards and casts each part there never holds the whole fp32 tree, and
+    the values are the unplaced build's."""
     _require_ported(cfg)
-    params = {"emb": layers.embed_init(gen, cfg.vocab_size, cfg.d_model),
-              "final_norm": layers.norm_init(cfg.norm, cfg.d_model, device=gen.device)}
+    keep = place or (lambda key, part: part)
+    params = {"emb": keep("emb", layers.embed_init(gen, cfg.vocab_size, cfg.d_model)),
+              "final_norm": keep("final_norm", layers.norm_init(cfg.norm, cfg.d_model,
+                                                                device=gen.device))}
     if not cfg.tie_embeddings:
-        params["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size)
+        params["unembed"] = keep("unembed", layers.dense_init(gen, cfg.d_model,
+                                                              cfg.vocab_size))
     if cfg.family == "hybrid":
-        params["prologue"] = [_mamba_layer_init(gen, cfg)
+        params["prologue"] = [keep("prologue", _mamba_layer_init(gen, cfg))
                               for _ in range(cfg.hybrid_prologue)]
-        params["groups"] = [[_mamba_layer_init(gen, cfg)
+        params["groups"] = [[keep("groups", _mamba_layer_init(gen, cfg))
                              for _ in range(cfg.hybrid_mamba_per_group)]
                             for _ in range(cfg.hybrid_groups)]
-        params["shared_attn"] = _block_init(gen, cfg)  # ONE weight set, reused
+        # ONE weight set, reused
+        params["shared_attn"] = keep("shared_attn", _block_init(gen, cfg))
         return params
     if cfg.family == "ssm":
-        params["blocks"] = [_rwkv_layer_init(gen, cfg) for _ in range(cfg.num_layers)]
-        params["ln0"] = layers.norm_init("layernorm", cfg.d_model, device=gen.device)
+        params["blocks"] = [keep("blocks", _rwkv_layer_init(gen, cfg))
+                            for _ in range(cfg.num_layers)]
+        params["ln0"] = keep("ln0", layers.norm_init("layernorm", cfg.d_model,
+                                                     device=gen.device))
         return params
-    params["blocks"] = [_block_init(gen, cfg) for _ in range(cfg.num_layers)]
+    params["blocks"] = [keep("blocks", _block_init(gen, cfg)) for _ in range(cfg.num_layers)]
     return params
 
 
@@ -225,9 +239,12 @@ def cast_params(cfg, params, dtype=None, device=None):
 # caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *, device):
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *, device,
+               kv_heads: Optional[int] = None):
+    """An empty cache; ``kv_heads`` (``cfg.num_kv_heads`` by default) is the
+    kv heads of a rank's block (``parallel.sharding.CacheBlock``)."""
     _require_ported(cfg)
-    hd, hkv = cfg.head_dim, cfg.num_kv_heads
+    hd, hkv = cfg.head_dim, kv_heads or cfg.num_kv_heads
     dt = layers.to_dtype(dtype)
     if cfg.family == "hybrid":
         # the Mamba2 states are fp32 whatever the compute type, as in the reference
@@ -376,14 +393,25 @@ def unembed(cfg, params, hidden):
 def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
                max_seq: Optional[int] = None, remat: str = "full",
                moe_impl: str = "einsum", mode=None):
-    """Forward + build decode cache. Returns (hidden, cache)."""
+    """Forward + build decode cache. Returns (hidden, cache).
+
+    Inside ``parallel.ctx.serving_cache`` the cache is this rank's block
+    (``parallel.sharding.CacheBlock``): its batch rows (``tokens`` are
+    those rows), the kv heads ``attn_apply`` collected (its own, or every
+    kv head where they do not split over ``model``) and its block of the
+    ``max_seq`` positions, of which it keeps the prompt's rows that fall
+    there."""
     hidden, _, kvs = apply_lm(cfg, params, tokens, embeds=embeds,
                               attn_fn=attn_fn, remat=remat, moe_impl=moe_impl,
                               collect_kv=True, mode=mode)
     B, S = tokens.shape[0], hidden.shape[1]
     max_seq = max_seq or S
-    cache = init_cache(cfg, B, max_seq, dtype=cfg.compute_dtype,
-                       device=hidden.device)
+    block = pctx.cache_block()
+    first, count, heads = 0, max_seq, None
+    if block is not None:
+        (first, count), heads = block.seq, block.heads[1]
+    cache = init_cache(cfg, B, count, dtype=cfg.compute_dtype,
+                       device=hidden.device, kv_heads=heads)
     cache["idx"] = S
     if cfg.family == "ssm":
         cache["layers"] = kvs
@@ -394,9 +422,10 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
         cache["groups"] = [states for states, _ in groups]
         kvs = [kv for _, kv in groups]
     ks, vs = ("attn_k", "attn_v") if cfg.family == "hybrid" else ("k", "v")
+    n = S if block is None else min(max(S - first, 0), count)   # the prompt's rows here
     for i, (k, v) in enumerate(kvs):
-        cache[ks][i, :, :S] = k.to(cache[ks].dtype)
-        cache[vs][i, :, :S] = v.to(cache[vs].dtype)
+        cache[ks][i, :, :n] = k[:, first:first + n].to(cache[ks].dtype)
+        cache[vs][i, :, :n] = v[:, first:first + n].to(cache[vs].dtype)
     return hidden, cache
 
 

@@ -53,6 +53,15 @@ attention's); ``join_columns`` joins the ranks' output columns, or under the
 split turns them into this rank's rows. None of them sums per-rank partial products
 in the forward (ROADMAP C32): each moves values, sums fp32 partials of an
 input's gradient, or (``seq_rows_of_sum``) adds zeros to a value.
+
+``serving_cache(mesh, block)`` is the serving steps' scope
+(``serve.decode``): the KV cache the model reads and writes is this rank's
+``sharding.CacheBlock``. What serving needs beside the operators above, none
+with a gradient: ``cache_seq_gather`` (a decode step's partials of every
+block of a cache split by sequence, for their merge), ``vocab_argmax`` (the
+greedy token over a vocabulary split by ``model``, ROADMAP C41) and
+``data_gather`` / ``data_rows`` (an MoE decode group spanning the data
+ranks, C40).
 """
 from __future__ import annotations
 
@@ -239,10 +248,19 @@ def all_reduce_f32(x, group):
 
 
 def all_gather(x, dim: int, group):
-    """The ranks' ``x`` joined along ``dim``, in rank order (no gradient)."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    """The ranks' ``x`` joined along ``dim``, in rank order (no gradient):
+    one all-gather into a buffer of the ranks' blocks, laid along ``dim``
+    (a list of blocks would take one copy each, then their join: host time
+    that a decode step pays in every layer)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    flat = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(flat, x, group=group)
+    dim %= x.dim()
+    if dim == 0:
+        return flat
+    shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
+    return flat.reshape((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
 
 
 class _ToModel(torch.autograd.Function):
@@ -446,3 +464,86 @@ def seq_rows_of_sum(x):
     element, so that the sum is exact (the vocabulary-parallel lookup); the
     rows' gradients are all-gathered back into the whole one."""
     return _SeqRowsOfSum.apply(x, model_group()) if seq_parallel() else x
+
+
+# ---------------------------------------------------------------------------
+# serving: the cache's blocks, the greedy token, a decode group over ``data``
+# ---------------------------------------------------------------------------
+
+# process-wide like the others: (mesh, sharding.CacheBlock) of the cache the
+# serving step reads and writes, or None
+_CACHE = None
+
+
+@contextmanager
+def serving_cache(mesh, block):
+    """Within the scope the model serves from this rank's ``block``
+    (``sharding.CacheBlock``) of a cache placed over ``mesh``: a prefill
+    builds that block, and a decode step attends over it, merging the
+    blocks' partials over ``block.seq_axes`` (``cache_seq_gather``)."""
+    global _CACHE
+    prev, _CACHE = _CACHE, (mesh, block)
+    try:
+        yield
+    finally:
+        _CACHE = prev
+
+
+def cache_block():
+    """The enclosing ``serving_cache`` scope's ``sharding.CacheBlock``, or ``None``."""
+    return None if _CACHE is None else _CACHE[1]
+
+
+def cache_seq_gather(x):
+    """``x`` of every rank whose block of the cache's sequence differs from
+    this one's (the axes ``cache_block().seq_axes``), stacked on a new leading
+    dim, this rank's among them (an all-gather over each axis in turn): a
+    decode step's partials of each block, for their merge. ``x[None]`` where
+    no axis splits the sequence."""
+    mesh, block = _CACHE
+    out = x[None]
+    for a in reversed(block.seq_axes):
+        out = all_gather(out, 0, mesh.get_group(a))
+    return out
+
+
+def vocab_argmax(logits):
+    """The greedy token of ``logits`` (..., V/tp), this model rank's block of
+    a vocabulary split over ``model`` (``torch.argmax``'s over the whole
+    vocabulary where none is): each rank's largest logit and its first index,
+    the pairs all-gathered over ``model`` (two numbers a row, where gathering
+    the logits would move V of them), and the first rank holding the largest.
+    The ranks' blocks lie in rank order, so the token is one device's
+    ``torch.argmax``, the first index on a tie. Int64, without the last dim."""
+    lay = layout()
+    if lay is None or not lay.vocab:
+        return torch.argmax(logits, dim=-1)
+    group = model_group()
+    local = torch.argmax(logits, dim=-1, keepdim=True)
+    best = torch.cat([logits.gather(-1, local).float(),
+                      (local + model_index() * logits.shape[-1]).float()], dim=-1)
+    every = all_gather(best[None], 0, group)                    # (tp, ..., 2)
+    rank = torch.argmax(every[..., 0], dim=0, keepdim=True)     # the first of the largest
+    return every[..., 1].gather(0, rank)[0].long()
+
+
+def data_gather(x):
+    """The data ranks' ``x`` joined along dim 0 in their batch order
+    (``data_index``), over the enclosing ``data_parallel`` scope's mesh, no
+    gradient: a decode group spanning the data ranks. ``x`` outside a scope
+    or with one data rank."""
+    mesh = data_mesh()
+    if mesh is None:
+        return x
+    sizes = shd.axis_sizes(mesh)
+    for a in reversed(shd.fsdp_axes(mesh)):
+        if sizes[a] > 1:
+            x = all_gather(x, 0, mesh.get_group(a))
+    return x
+
+
+def data_rows(x, n: int):
+    """This data rank's ``n`` rows of ``x``, the data ranks' rows joined
+    (``data_gather``)."""
+    mesh = data_mesh()
+    return x if mesh is None else x.narrow(0, data_index(mesh) * n, n)

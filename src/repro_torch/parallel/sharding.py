@@ -88,6 +88,13 @@ gradients past the 1e-5 parity with one device (ROADMAP C32).
     leaf's split). An encoder's leaves (``STACK_LEAVES``) follow its own
     stack's answer.
 
+The serving steps (``serve.decode``'s ``mesh=``; the dense, vlm and moe
+families, ``SERVE_FAMILIES``) hold each bf16 leaf in its ``compute_layout``
+over ``model`` and whole over the data axes (``serve_specs``; ROADMAP C42),
+and each rank's block of a KV cache placed by ``cache_specs`` is a
+``CacheBlock`` (``cache_block``): its batch rows, its kv heads, its block of
+the sequence.
+
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
 a mesh too large to build, as the planning tests use).
@@ -536,3 +543,74 @@ def cache_specs(cfg, mesh, *, batch: int, seq_shard: bool = False):
     if cfg.family == "encdec":
         return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv}
     raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+# the serving layout (``serve.decode``'s sharded steps)
+# ---------------------------------------------------------------------------
+
+# the families whose serving steps are partitioned over the mesh; the hybrid,
+# ssm and encdec families' serving cells are not (ROADMAP C29)
+SERVE_FAMILIES = ("dense", "vlm", "moe")
+
+
+def serve_specs(cfg, params_shape, mesh):
+    """The placements the serving steps hold their parameters in, one spec a
+    leaf of ``params_shape`` (as ``param_specs`` gives them): each leaf in its
+    ``compute_layout`` over ``model`` (residual unsplit, no ``Segments``:
+    ``SERVE_FAMILIES``) and whole over the data axes, so that a step computes
+    on each rank's block with no gather. A serving replica holds its weights;
+    the reference's cells place them by ``param_specs`` and its GSPMD step
+    gathers them over the data axes at every step."""
+    if cfg.family not in SERVE_FAMILIES:
+        raise NotImplementedError(f"the {cfg.family} family has no sharded serving "
+                                  f"layout; partitioned: {SERVE_FAMILIES}")
+    specs = [spec for spec, _ in compute_layout(cfg, params_shape, mesh)]
+    return tree.rebuild(params_shape, specs, is_leaf=None)
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def entry_block(mesh, entry, size: int) -> Tuple[int, int]:
+    """(first, count) of this rank's block of a dim of ``size`` that the spec
+    ``entry`` splits: the axes' local ranks in mixed radix, in entry order
+    (a ``DTensor`` splits a dim over its mesh dims in mesh order)."""
+    sizes, i, n = axis_sizes(mesh), 0, 1
+    for a in _entry_axes(entry):
+        i, n = i * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+    return i * (size // n), size // n
+
+
+@dataclass(frozen=True)
+class CacheBlock:
+    """This rank's block of a ``(L, B, S_max, Hkv, hd)`` K/V cache placed by
+    ``cache_specs``: ``spec`` the stacks' spec after ``sanitize_spec``,
+    ``rows`` / ``seq`` / ``heads`` each ``(first, count)`` of the batch, the
+    sequence and the kv heads, ``seq_axes`` the axes of more than one rank
+    that split the sequence (their blocks' decode partials are merged)."""
+    spec: Tuple
+    rows: Tuple[int, int]
+    seq: Tuple[int, int]
+    heads: Tuple[int, int]
+    seq_axes: Tuple[str, ...]
+
+    @property
+    def rows_split(self) -> bool:
+        """Whether the batch rows are split over the data axes (else every
+        rank holds the whole batch)."""
+        return self.spec[1] is not None
+
+
+def cache_block(cfg, mesh, *, batch: int, max_seq: int, seq_shard: bool = False) -> CacheBlock:
+    """This rank's ``CacheBlock`` of a cache of ``batch`` rows and ``max_seq``
+    positions (``cache_specs``, ``seq_shard`` its long-context layout)."""
+    kv = cache_specs(cfg, mesh, batch=batch, seq_shard=seq_shard)["k"]
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    spec = sanitize_spec(kv, shape, mesh)
+    sizes = axis_sizes(mesh)
+    return CacheBlock(spec=spec, rows=entry_block(mesh, spec[1], batch),
+                      seq=entry_block(mesh, spec[2], max_seq),
+                      heads=entry_block(mesh, spec[3], cfg.num_kv_heads),
+                      seq_axes=tuple(a for a in _entry_axes(spec[2]) if sizes[a] > 1))

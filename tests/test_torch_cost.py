@@ -501,6 +501,101 @@ def test_sequence_parallelism_cuts_a_train_cells_peak_and_wire(port_records, arc
     assert f1 / 4 < f4 <= top, (arch, f4 / f1)
 
 
+# A4: the serving cells of the dense family on a fake (2, 4) group through the
+# sharded steps, beside one device's and beside C29's route (every parameter
+# gathered whole, each data rank's rows at full width), the counter's
+# all-gather rows kept
+SERVE_SPLIT_SCRIPT = textwrap.dedent("""
+    import ast, json, sys
+    from unittest import mock
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils import cost
+
+    class Kept(cost.CostCounter):
+        last = None
+
+        def __enter__(self):
+            Kept.last = self
+            return super().__enter__()
+
+    dryrun.CostCounter = Kept
+    full_tensor, calls = DTensor.full_tensor, [0]
+
+    def counted(t, **kw):
+        calls[0] += 1
+        return full_tensor(t, **kw)
+
+    DTensor.full_tensor = counted
+    out = {}
+    for dims in ([1, 1], [2, 4]):
+        dryrun.init_fake_group(dims[0] * dims[1])
+        mesh = make_mesh(dims, ("data", "model"))
+        for arch, shape in json.loads(sys.argv[1]):
+            cfg = registry.get(arch).reduced()
+            leaves = [list(t.shape) for t in tree.leaves(api.init(cfg, device="meta"))]
+            for route, fams in (("", shd.SERVE_FAMILIES), ("-c29", ())):
+                if dims == [1, 1] and route:
+                    continue
+                calls[0] = 0
+                # C29's route: the cell built as for a family without sharded steps
+                with mock.patch.object(shd, "SERVE_FAMILIES", fams):
+                    rec = dryrun.run_cell(cfg, ShapeConfig(*shape), mesh,
+                                          "x".join(map(str, dims)))
+                gathers = [shape_ for _, op, shape_, _ in Kept.last.top_bytes(10 ** 6)
+                           if "all_gather" in op or "allgather" in op]
+                rec["whole_param_gathers"] = sum(
+                    list(ast.literal_eval(g)) in leaves for g in gathers) + calls[0]
+                out[f"{arch}|{shape[3]}|{rec['mesh']}{route}"] = rec
+    print(json.dumps(out))
+""")
+SERVE_CELLS = [("olmo-1b", PREFILL), ("olmo-1b", DECODE), ("qwen2.5-3b", PREFILL),
+               ("qwen2.5-3b", DECODE)]
+
+
+@pytest.fixture(scope="module")
+def serve_records():
+    return _run(SERVE_SPLIT_SCRIPT, json.dumps([(a, dataclasses.astuple(s))
+                                                for a, s in SERVE_CELLS]))
+
+
+def _kv_whole_flops(cfg, rows, positions):
+    """Dot FLOPs of ``wk`` and ``wv`` over ``rows`` x ``positions`` tokens at
+    every layer: a serving cell computes them whole on each model rank where
+    the kv heads do not split over ``model`` (qwen2.5-3b's 2 over 4)."""
+    return 2 * 2 * rows * positions * cfg.d_model * cfg.num_kv_heads * cfg.head_dim \
+        * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch,shape", SERVE_CELLS, ids=[f"{a}-{s.kind}" for a, s in SERVE_CELLS])
+def test_a_serving_cell_is_partitioned_over_the_mesh(serve_records, arch, shape):
+    """A4: a ``prefill`` and a ``decode`` cell on a fake (2, 4) group through
+    the sharded steps gather no parameter whole (no ``full_tensor``, no
+    all-gather of a parameter's shape), where C29's route gathers every one;
+    a device's FLOPs are one device's over the 8 ranks (2 data, 4 model) for
+    the products that split, within 5 %: olmo-1b splits every product,
+    qwen2.5-3b computes ``wk`` / ``wv`` whole on each model rank
+    (``_kv_whole_flops``, over its data rank's rows). Its decode attends over
+    a cache split by sequence: each rank's block of every head."""
+    cfg = tregistry.get(arch).reduced()
+    one = serve_records[f"{arch}|{shape.kind}|1x1"]
+    eight = serve_records[f"{arch}|{shape.kind}|2x4"]
+    c29 = serve_records[f"{arch}|{shape.kind}|2x4-c29"]
+    assert eight["whole_param_gathers"] == 0 < c29["whole_param_gathers"]
+    assert eight["mem"]["peak_bytes"] < c29["mem"]["peak_bytes"]
+    positions = shape.seq_len if shape.kind == "prefill" else 1
+    whole = _kv_whole_flops(cfg, shape.global_batch, positions) if arch == "qwen2.5-3b" else 0
+    want = (one["flops_per_device"] - whole) / 8 + whole / 2
+    assert eight["flops_per_device"] == pytest.approx(want, rel=0.05)
+    assert eight["flops_per_device"] < c29["flops_per_device"] / 3
+
+
 NO_COUNTERPART = {"xla_flops_per_device", "xla_bytes_per_device", "t_lower_s", "t_compile_s"}
 
 

@@ -779,7 +779,8 @@ def test_sharded_run_checks_its_own_invariants(sharded_run):
     """The worker asserted each rank's local shapes against the specs and the
     partitioned route; the dense runs also the DTensor constrain and the
     elastic restore under 4 x 1; the moe run over two data ranks refuses a
-    rank's rows short of a dispatch group (ROADMAP C27); over one data rank
+    rank's rows short of a dispatch group (ROADMAP C27), with grad and
+    without (only the serving scope gathers a group over data); over one data rank
     the moe run's scatter dispatch is held to one device's. The inputs'
     gradients are summed over model: all-reduced (``all_reduce_f32``) in the
     runs with the residual whole, reduce-scattered back to the rows
@@ -792,6 +793,7 @@ def test_sharded_run_checks_its_own_invariants(sharded_run):
         assert out["model_reduces"] > 0 and out["seq_scatters"] == 0
     if JOBS[name]["arch"] == "dbrx-132b":
         assert "fewer than a group of 512" in out["moe_small_batch"]
+        assert "fewer than a group of 512" in out["moe_small_batch_no_grad"]
     elif JOBS[name]["arch"] == "grok-1-314b":
         assert out["scatter_loss"] == pytest.approx(out["scatter_loss_one"], rel=tol, abs=tol)
     else:

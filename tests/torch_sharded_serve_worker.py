@@ -1,0 +1,383 @@
+"""One rank of a sharded serving run through ``serve.decode.make_prefill_step``
+and ``make_serve_step`` with ``mesh=``, for the parity tests on gloo ranks
+(``tests/test_torch_parallel_serve.py``), and the same run on cards over NCCL.
+
+    python tests/torch_sharded_serve_worker.py RANK WORLD JOB_JSON
+
+runs one rank of ``JOB_JSON`` (the test starts one process a rank on a
+``file://`` store and reads rank 0's ``<out>.json``). The job's keys:
+``arch``, ``mesh`` (data, model), ``batch``, ``prompt`` (its length),
+``max_seq``, ``steps`` (decode steps after the prefill); optional
+``replace`` (config fields; the reduced config in fp32 compute is the
+default), ``seq_shard`` (the cache's long-context layout), ``store``,
+``out``. The parameters are ``api.init(cfg, 0)``'s, the prompts
+``serve_inputs``'s: the test serves the same on one device.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        tests/torch_sharded_serve_worker.py --chip --arch qwen2.5-3b --out F.json
+
+serves full-width ``arch`` in bf16 on one card a rank (NCCL; without
+``torch.distributed.run``, one rank on one card): 8 prompts of 512 tokens
+and 16 new tokens by default (qwen's traffic), ``--tp`` model ranks
+(default: all), with ``--compare`` the same on one card (rank 0, after the
+mesh's run: the first decode step's logits and the share of equal greedy
+tokens; needs the whole model on one card), ``--cut num_layers=N`` to cut
+the depth. A first, short run warms the card; the second is timed. It writes
+the prefill ms, each decode step's ms, tokens/s, every rank's peak memory
+and the kernels' launch counts to ``F.json``. ``--device cpu --reduced``
+runs the same on gloo ranks on the host, to rehearse.
+"""
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch import tree
+from repro_torch.configs import registry
+from repro_torch.kernels import flash_attention, flash_decode, ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import api, attention, moe
+from repro_torch.parallel import ctx as pctx
+from repro_torch.parallel import sharding as shd
+from repro_torch.serve import decode
+
+
+def serve_inputs(cfg, batch: int, prompt: int, seed: int = 0):
+    """The prompts (numpy int64, (batch, prompt)) and, for a vlm, the prefix
+    embeddings (float32, (batch, frontend_len, d_model)), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt))}
+    if cfg.family == "vlm":
+        out["embeds"] = (0.5 * rng.standard_normal((batch, cfg.frontend_len, cfg.d_model))
+                         ).astype(np.float32)
+    return out
+
+
+def dropped_in_first_group(idx, cfg, group=512):
+    """(tokens, group size, dropped (token, choice) pairs of the first group)
+    of one routing ``idx`` (T, k) in the einsum dispatch's groups."""
+    T, k = idx.shape
+    g = min(group, T)
+    cap = max(1, int(g * k / cfg.num_experts * cfg.capacity_factor))
+    first = idx[:g].reshape(-1)
+    pos = torch.cumsum(torch.nn.functional.one_hot(first, cfg.num_experts), dim=0) - 1
+    return [T, g, int((pos.gather(1, first[:, None]) >= cap).sum())]
+
+
+class Recorder:
+    """What a run's checks read, recorded while it serves: the logits each
+    greedy token is taken from (gathered over a vocabulary split by
+    ``model``), each MoE routing's first dispatch group, the decode
+    partials' calls (``_decode_blocks``) and the kernel seam's decode calls
+    (a block with no filled row calls none), and any ``full_tensor``."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.logits, self.groups = [], []
+        self.blocks, self.decode_calls, self.partials_calls, self.gathers = 0, 0, 0, 0
+
+    def __enter__(self):
+        self.saved = (decode.greedy, moe._route, attention._decode_blocks, ops.decode_forward,
+                      DTensor.full_tensor)
+        greedy, route, blocks, decode_forward, full_tensor = self.saved
+
+        def rec_greedy(logits):
+            lay = pctx.layout()
+            whole = logits
+            if lay is not None and lay.vocab:
+                whole = pctx.all_gather(logits, -1, pctx.model_group())
+            self.logits.append(whole.float().reshape(whole.shape[0], -1).clone())
+            return greedy(logits)
+
+        def rec_route(p, x2d, cfg):
+            out = route(p, x2d, cfg)
+            self.groups.append(dropped_in_first_group(out[1], self.cfg))
+            return out
+
+        def rec_blocks(*a, **kw):
+            self.blocks += 1
+            return blocks(*a, **kw)
+
+        def rec_decode(*a, **kw):
+            self.decode_calls += 1
+            self.partials_calls += bool(kw.get("return_partials"))
+            return decode_forward(*a, **kw)
+
+        def rec_full(t, **kw):
+            self.gathers += 1
+            return full_tensor(t, **kw)
+
+        decode.greedy, moe._route, attention._decode_blocks = rec_greedy, rec_route, rec_blocks
+        ops.decode_forward, DTensor.full_tensor = rec_decode, rec_full
+        return self
+
+    def __exit__(self, *exc):
+        (decode.greedy, moe._route, attention._decode_blocks, ops.decode_forward,
+         DTensor.full_tensor) = self.saved
+
+
+def one_device(cfg, params, inputs, max_seq: int, steps: int, device="cpu"):
+    """The unsharded steps over the same prompts: (greedy tokens (B, 1 +
+    steps), a ``Recorder`` whose ``ms`` holds the prefill's and each decode
+    step's ms)."""
+    prefill = decode.make_prefill_step(cfg, max_seq=max_seq)
+    step = decode.make_serve_step(cfg)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    with Recorder(cfg) as rec:
+        t0 = _clock(device)
+        tok, cache = prefill(params, batch)
+        rec.ms = [_clock(device) - t0]
+        toks = [tok]
+        for _ in range(steps):
+            t0 = _clock(device)
+            tok, cache = step(params, cache, tok)
+            rec.ms.append(_clock(device) - t0)
+            toks.append(tok)
+    return torch.cat(toks, dim=1), rec
+
+
+def _rows_of_every_rank(x, block):
+    """The data ranks' rows of ``x`` joined in batch order (every rank's
+    copy; ``x`` itself where every rank serves the whole batch)."""
+    if not block.rows_split:
+        return x
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (block.rows[0], x.cpu()))
+    seen = {}
+    for first, rows in parts:
+        seen.setdefault(first, rows)
+    return torch.cat([seen[k] for k in sorted(seen)], dim=0)
+
+
+def profile_summary(prof, wall_ms, n=10):
+    """A profiled window's wall and device-busy ms, its NCCL kernels' ms,
+    and its heaviest host ops (self CPU ms) and device kernels (ms)."""
+    rows = prof.key_averages()
+    dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3) for e in rows
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ms for _, ms in dev)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in rows),
+                  key=lambda r: -r[1])[:n]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "nccl_ms": sum(ms for k, ms in dev if "nccl" in k.lower()),
+            "top_host_ops": host, "top_kernels": sorted(dev, key=lambda r: -r[1])[:n]}
+
+
+def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=False):
+    """The sharded steps over the prompts: (tokens (B, 1 + steps) of every
+    rank's rows, the ``CacheBlock``, the cache's local shape, a ``Recorder``,
+    ms of the prefill and of each decode step); with ``profile`` the last
+    decode step runs under ``torch.profiler`` and its summary
+    (``profile_summary``) is the sixth."""
+    prefill = decode.make_prefill_step(cfg, max_seq=max_seq, mesh=mesh, seq_shard=seq_shard)
+    step = decode.make_serve_step(cfg, mesh=mesh, seq_shard=seq_shard)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    block = shd.cache_block(cfg, mesh, batch=batch["tokens"].shape[0], max_seq=max_seq,
+                            seq_shard=seq_shard)
+    tok_pl = shd.placements((block.spec[1], None), mesh)
+    ms, summary = [], None
+    with Recorder(cfg) as rec:
+        t0 = _clock(device)
+        tok, cache = prefill(params, batch)
+        ms.append(_clock(device) - t0)
+        toks = [tok]
+        for i in range(steps):
+            glob = DTensor.from_local(tok, mesh, tok_pl,
+                                      shape=(batch["tokens"].shape[0], 1), stride=(1, 1))
+            traced = profile and i == steps - 1
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                     torch.profiler.ProfilerActivity.CUDA])
+                  if traced else contextlib.nullcontext()) as prof:
+                t0 = _clock(device)
+                tok, cache = step(params, cache, glob)
+                ms.append(_clock(device) - t0)
+            if traced:
+                summary = profile_summary(prof, ms[-1])
+            toks.append(tok)
+    local = tuple(cache["k"].to_local().shape)
+    return torch.cat(toks, dim=1), block, local, rec, ms, summary
+
+
+def _clock(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() * 1e3
+
+
+def run_job(rank, world, job):
+    """One rank of a parity job on gloo (the module's docstring)."""
+    dist.init_process_group("gloo", init_method="file://" + job["store"], rank=rank,
+                            world_size=world)
+    cfg = dataclasses.replace(registry.get(job["arch"]).reduced(),
+                              **{"compute_dtype": "float32", **job.get("replace", {})})
+    mesh = make_mesh(tuple(job["mesh"]), ("data", "model"))
+    whole = api.init(cfg, 0, device="cpu")
+    params = decode.shard_params(cfg, whole, mesh)
+    # no rank holds a leaf the layout splits whole
+    for p, w in zip(tree.leaves(params), tree.leaves(whole)):
+        assert isinstance(p, DTensor) and p.shape == w.shape
+        split = any(pl.is_shard() for pl in p.placements)
+        assert (p.to_local().numel() < w.numel()) == split
+    # the drawn-and-placed build holds the same blocks, in fp32 and cast to bf16
+    for dt in (None, torch.bfloat16):
+        want = decode.shard_params(cfg, api.cast_params(cfg, whole, dt), mesh)
+        got = decode.init_params(cfg, mesh, 0, device="cpu", dtype=dt)
+        for a, b in zip(tree.leaves(got), tree.leaves(want)):
+            assert a.placements == b.placements and a.shape == b.shape
+            assert torch.equal(a.to_local(), b.to_local()) and a.dtype == b.dtype
+    del whole
+    inputs = serve_inputs(cfg, job["batch"], job["prompt"])
+    toks, block, local, rec, _, _ = serve(cfg, mesh, params, inputs, job["max_seq"],
+                                          job["steps"], job.get("seq_shard", False), "cpu")
+    assert not rec.gathers
+    out = {"tokens": _rows_of_every_rank(toks, block).tolist(),
+           "logits": [_rows_of_every_rank(x, block).tolist() for x in rec.logits],
+           "moe_groups": rec.groups,
+           "block": {"rows": block.rows, "seq": block.seq, "heads": block.heads,
+                     "seq_axes": block.seq_axes, "spec": block.spec},
+           "cache_local_shape": local,
+           "decode_blocks": rec.blocks, "decode_calls": rec.decode_calls,
+           "partials_calls": rec.partials_calls,
+           "layout": dataclasses.asdict(shd.model_layout(cfg, job["mesh"][1]))}
+    every = [None] * world
+    dist.all_gather_object(every, {k: out[k] for k in ("block", "cache_local_shape",
+                                                       "decode_blocks", "decode_calls",
+                                                       "partials_calls")})
+    out["ranks"] = every
+    if rank == 0:
+        with open(job["out"] + ".json", "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the same run on cards
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return {"flash_attention": flash_attention.launches, "flash_decode": flash_decode.launches}
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def chip_main(argv):
+    ap = argparse.ArgumentParser(prog="torch_sharded_serve_worker.py --chip")
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=512)
+    ap.add_argument("--new", type=int, default=16, help="new tokens a prompt")
+    ap.add_argument("--tp", type=int, default=None, help="model ranks (default: all)")
+    ap.add_argument("--cut", action="append", default=[], metavar="FIELD=N",
+                    help="a config field's value, to cut the depth (repeated)")
+    ap.add_argument("--compare", action="store_true",
+                    help="serve the same on one card after the mesh's run (rank 0)")
+    ap.add_argument("--device", default="cuda",
+                    help="cpu: gloo ranks on the host, to rehearse (with --reduced)")
+    ap.add_argument("--reduced", action="store_true", help="the reduced config")
+    ap.add_argument("--dtype", default=None, help="the compute type (the config's by default)")
+    ap.add_argument("--profile", action="store_true",
+                    help="the last decode step (and one card's, with --compare) profiled")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
+    cuda = args.device == "cuda"
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) if cuda else \
+        torch.device("cpu")
+    backend = dict(backend="nccl", device_id=dev) if cuda else dict(backend="gloo")
+    if cuda:
+        torch.cuda.set_device(dev)
+    store = None
+    if "MASTER_ADDR" in os.environ:
+        dist.init_process_group(**backend)
+    else:                               # one rank without torch.distributed.run
+        store = os.path.abspath(args.out) + ".store"
+        if os.path.exists(store):
+            os.remove(store)
+        dist.init_process_group(init_method="file://" + store, rank=0, world_size=1, **backend)
+    tp = args.tp or world
+    cut = {k: int(v) for k, v in (c.split("=", 1) for c in args.cut)}
+    cfg = registry.get(args.arch)
+    cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg, **cut,
+                              **({"compute_dtype": args.dtype} if args.dtype else {}))
+    mesh = make_mesh((world // tp, tp), ("data", "model"))
+    max_seq = args.prompt + args.new
+    inputs = serve_inputs(cfg, args.batch, args.prompt)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = decode.init_params(cfg, mesh, 0, device=dev)
+    set_up_s = time.perf_counter() - t0
+    set_up_peak = _peak(dev)
+    # a first run warms the card (kernel loads, cuBLAS handles, NCCL channels);
+    # the second is timed
+    serve(cfg, mesh, params, inputs, max_seq, 1, False, dev)
+    _reset_peak(dev)
+    before = _launches()
+    toks, block, local, rec, ms, prof = serve(cfg, mesh, params, inputs, max_seq,
+                                              args.new - 1, False, dev, profile=args.profile)
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    steps_peak = _peak(dev)
+    toks = _rows_of_every_rank(toks, block)
+    first_logits = _rows_of_every_rank(rec.logits[1], block)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, [set_up_peak, steps_peak])
+    out = {"arch": cfg.name, "cut": cut, "mesh": {"data": world // tp, "model": tp},
+           "batch": args.batch, "prompt": args.prompt, "new_tokens": args.new,
+           "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "layout": dataclasses.asdict(shd.model_layout(cfg, tp)),
+           "cache_block": {"rows": block.rows, "seq": block.seq, "heads": block.heads,
+                           "seq_axes": block.seq_axes, "local_shape": local},
+           "set_up_s": set_up_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
+           "tokens_per_s": args.batch * args.new / (sum(ms) / 1e3),
+           "decode_tokens_per_s": args.batch * (args.new - 1) / (sum(ms[1:]) / 1e3),
+           "launches": launches, "decode_partials_calls": rec.partials_calls,
+           "set_up_peak_gb": [p[0] for p in peaks], "steps_peak_gb": [p[1] for p in peaks],
+           "compute_dtype": cfg.compute_dtype, "profiled_decode_step": prof}
+    del params, rec
+    _reset_peak(dev)
+    if args.compare and rank == 0:
+        whole = api.cast_params(cfg, api.init(cfg, 0, device=dev))
+        one_device(cfg, whole, inputs, max_seq, 1, device=dev)           # warm
+        t0 = _clock(dev)
+        one, one_rec = one_device(cfg, whole, inputs, max_seq, args.new - 1, device=dev)
+        one_ms = _clock(dev) - t0
+        want = one_rec.logits[1].cpu()
+        diff = (first_logits.cpu() - want).abs()
+        out["one_card"] = {"peak_gb": _peak(dev), "serve_ms": one_ms,
+                           "prefill_ms": one_rec.ms[0], "decode_ms": one_rec.ms[1:],
+                           "tokens_per_s": args.batch * args.new / (one_ms / 1e3)}
+        out["equal_token_share"] = float((one.cpu() == toks.cpu()).float().mean())
+        out["first_decode_logits_max_abs"] = float(diff.max())
+        out["first_decode_logits_max_rel"] = float((diff / want.abs().clamp(min=1.0)).max())
+        del whole
+    if rank == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    if store is not None and os.path.exists(store):
+        os.remove(store)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--chip"]:
+        chip_main(sys.argv[2:])
+    else:
+        run_job(int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3]))

@@ -243,6 +243,12 @@ def run_job(rank, world, job):
             out["moe_small_batch"] = "trained"
         except ValueError as e:
             out["moe_small_batch"] = str(e)
+        try:                            # an evaluation's forward, without grad: alike
+            with torch.no_grad():
+                step(state, small)
+            out["moe_small_batch_no_grad"] = "ran"
+        except ValueError as e:
+            out["moe_small_batch_no_grad"] = str(e)
     elif cfg.family == "moe":
         # the scatter dispatch's loss on the partitioned experts, and on one device
         srun = dataclasses.replace(run, moe_impl="scatter")

@@ -22,9 +22,11 @@ Phases, each printing one JSON line:
            Kernel and library times are device times (kernel durations from
            torch.profiler); wrapper_ms is the host-clocked time of a call
            through the wrapper; a decode call must run one device kernel.
-           Both decode kernels also over a cache split by sequence into 4
-           blocks, as the sharded decode runs them (at the serving shape,
-           cache_len 520, and at 32768; one block cut mid-tile, one empty):
+           Both decode kernels also over a cache split by sequence into
+           blocks, as the sharded decode runs them (4 at the serving shape,
+           cache_len 520, and at 32768; zamba2-7b's long_500k decode, G = 1,
+           D 112, over 2; whisper-large-v3's self decode, D 64, over 4; each
+           with one block cut mid-tile and one empty):
            return_partials=True on each block with a filled row, nothing
            launched for the empty one, the partials merged by
            attention.merge_partial_attn, held to the plain version's
@@ -144,12 +146,15 @@ Phases, each printing one JSON line:
            too), bit for bit with the unsharded trainer and with the same
            launches a step; each prints its depth cut, route, losses, norms,
            step ms, the steps' peak of every run and one more sharded step
-           under the profiler. Last, full-width qwen2.5-3b served through the
+           under the profiler. Last, full-width qwen2.5-3b, and zamba2-7b,
+           rwkv6-7b and whisper-large-v3 at full depth, served through the
            sharded serving steps (serve.decode's mesh=) on the (1, 1) mesh,
-           4 prompts of 512 tokens and 8 new tokens, its parameters placed by
+           4 prompts of 512 tokens (whisper: 64 tokens and 1500 stub frames)
+           and 8 new tokens, the parameters placed by
            serve.decode.init_params: tokens and every step's logits equal
            the unsharded steps' bit for bit, launches asserted (one bf16
-           forward a layer, one bf16 decode a layer a step) and printed
+           forward an attention use, one bf16 decode a self- or
+           cross-attention a step; none for rwkv6) and printed
   examples the port's example scripts (examples/torch_*.py) on the card, in
            this process, each through its main(): torch_quickstart as the
            JAX package's quickstart sizes it (reduced olmo-1b, 8 steps, then 6
@@ -263,6 +268,8 @@ FWD_GRID = [  # B, H, Hkv, L, S, D
     (4, 20, 20, 64, 64, 64),       # whisper-large-v3's decoder prefill, G = 1
     (4, 20, 20, 64, 1500, 64),     # its cross-attention, L != S, S ragged
     (4, 20, 20, 1500, 1500, 64),   # its encoder (non-causal), ragged
+    (4, 5, 5, 64, 1500, 64),       # its cross-attention on a rank's 5 heads (tp 4)
+    (4, 5, 5, 1500, 1500, 64),     # its encoder on a rank's 5 heads (tp 4)
 ]
 FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 16, 2, 1024, 1024, 64),
@@ -274,6 +281,9 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 4, 4, 8, 8, 16),           # its prefill: one 8-token prompt
     (1, 16, 2, 16, 16, 128),       # serve_e2e twin: full-width qwen2.5-3b's 16-token prefill
     (4, 12, 12, 128, 128, 64),     # the train twin's 100M model, one microbatch
+    (4, 32, 32, 512, 512, 112),    # zamba2-7b's sharded prefill of 4 prompts on (1, 1)
+    (8, 8, 8, 512, 512, 112),      # zamba2-7b's prefill on a rank's 8 heads (tp 4)
+    (4, 5, 5, 64, 64, 64),         # whisper-large-v3's decoder prefill, a rank's 5 heads
 ]
 FWD_STAGES = [  # bf16, both masks, at every ring depth the forward is built with
     (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
@@ -307,6 +317,9 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (3, 4, 4, 64, 16, 12),         # the quickstart twin's last decode step, 3 slots
     (4, 16, 2, 64, 128, 17),       # serve_e2e twin's decode: its first and last cache length
     (4, 16, 2, 64, 128, 24),
+    (8, 8, 8, 528, 112, 520),      # zamba2-7b's decode on a rank's 8 heads (tp 4)
+    (4, 5, 5, 80, 64, 70),         # whisper-large-v3's self step on a rank's 5 heads
+    (4, 5, 5, 1500, 64, 1500),     # its cross step on a rank's 5 heads
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -352,12 +365,24 @@ SERVE_DEC = dict(B=4, H=16, Hkv=2, S_max=1024, D=128, clen=520, layers=36)
 ZAMBA_DEC = dict(B=4, H=32, Hkv=32, S_max=1024, D=112, clen=520, layers=13)
 WHISPER_DEC = dict(B=4, H=20, Hkv=20, S_max=1500, D=64, clen=1500, layers=32)  # cross
 LONG_DEC = dict(B=4, H=16, Hkv=2, D=128, clen=32768)
-# a cache split by sequence into 4 blocks (the sharded decode, models/attention.py's
-# _decode_blocks): at the serving shape block 2 holds 8 rows (half a 16-row tile)
-# and block 3 none; at 32768 block 2 holds 10918 rows (6 past a tile) and block 3 none
-MERGE_DEC = [dict(B=4, H=16, Hkv=2, D=128, clen=520, block=256),
-             dict(B=4, H=16, Hkv=2, D=128, clen=32768, block=10925)]
-SERVE_PARALLEL = dict(arch="qwen2.5-3b", batch=4, prompt_len=512, new_tokens=8)
+# a cache split by sequence into blocks (the sharded decode, models/attention.py's
+# _decode_blocks): at the serving shape block 2 of 4 holds 8 rows (half a 16-row
+# tile) and block 3 none; at 32768 block 2 holds 10918 rows (6 past a tile) and
+# block 3 none; zamba2-7b's long_500k decode on (2, 2) (G = 1, D 112, a model
+# rank's 16 heads) over 2 data blocks, block 0 cut 7 rows past a tile and block 1
+# empty; whisper-large-v3's self decode at tp 16 (G = 1, D 64, its 20 heads
+# whole) over 4 blocks, block 2 holding 6 rows and block 3 none
+MERGE_DEC = [dict(B=4, H=16, Hkv=2, D=128, clen=520, block=256, blocks=4),
+             dict(B=4, H=16, Hkv=2, D=128, clen=32768, block=10925, blocks=4),
+             dict(B=1, H=16, Hkv=16, D=112, clen=40007, block=65536, blocks=2),
+             dict(B=4, H=20, Hkv=20, D=64, clen=70, block=32, blocks=4)]
+# full width through the sharded serving steps on the (1, 1) mesh, beside the
+# unsharded steps: qwen2.5-3b, and zamba2-7b, rwkv6-7b and whisper-large-v3 at the
+# full depth their single-card phases serve (whisper: 1500 stub frames)
+SERVE_PARALLEL = [dict(arch="qwen2.5-3b", batch=4, prompt_len=512, new_tokens=8),
+                  dict(arch="zamba2-7b", batch=4, prompt_len=512, new_tokens=8),
+                  dict(arch="rwkv6-7b", batch=4, prompt_len=512, new_tokens=8),
+                  dict(arch="whisper-large-v3", batch=4, prompt_len=64, new_tokens=8)]
 COST = dict(arch="qwen2.5-3b", prompt_len=512, slots=4, clen=520, max_seq=1024)
 BOUND_OVER_BUSY = 1.05  # a roofline bound above the card's own busy time means a count or a
                         # constant is wrong; 5 % for the profiler's own spread
@@ -676,19 +701,20 @@ def time_decode(rng, dt, s=SERVE_DEC):
 
 
 def check_merged_partials(rng, dt):
-    """The decode kernel of ``dt`` over a cache split by sequence into 4 blocks
+    """The decode kernel of ``dt`` over a cache split by sequence into blocks
     (``MERGE_DEC``), as the sharded decode step runs it: each block with a
     filled row launches once with ``return_partials=True`` on its rows, an
     empty block launches nothing and gives ``(0, -inf, 0)``, and the partials
     are merged by ``attention.merge_partial_attn``. The fp32 merge is held to
     the plain version's normalised partials over the whole cache at the fp32
     tolerance for both input types, as the grid holds the partials: neither
-    carries a rounding to the query type. Returns one row a shape."""
+    carries a rounding to the query type. Each shape has an empty block and
+    one cut mid-tile. Returns one row a shape."""
     rows = []
     for s in MERGE_DEC:
-        n, clen = s["block"], s["clen"]
-        k = randn(rng, (s["B"], 4 * n, s["Hkv"], s["D"]), dt)
-        v = randn(rng, (s["B"], 4 * n, s["Hkv"], s["D"]), dt)
+        n, clen, nb = s["block"], s["clen"], s["blocks"]
+        k = randn(rng, (s["B"], nb * n, s["Hkv"], s["D"]), dt)
+        v = randn(rng, (s["B"], nb * n, s["Hkv"], s["D"]), dt)
         q = randn(rng, (s["B"], 1, s["H"], s["D"]), dt)
         acc_w, _, l_w = ops.decode_forward(q, k, v, clen, mode="reference",
                                            return_partials=True)
@@ -696,7 +722,7 @@ def check_merged_partials(rng, dt):
         f32 = dict(dtype=torch.float32, device=DEV)
         parts, lens = [], []
         n0 = fd.launches
-        for b in range(4):
+        for b in range(nb):
             c = min(max(clen - b * n, 0), n)
             lens.append(c)
             if c:
@@ -712,7 +738,8 @@ def check_merged_partials(rng, dt):
         torch.cuda.synchronize()
         what = f"flash_decode {dt} merged over blocks {lens}"
         err = compare(got, want, torch.float32, what)
-        if launched != sum(c > 0 for c in lens) or 0 not in lens or lens[2] % fd.TILE_SM90 == 0:
+        if (launched != sum(c > 0 for c in lens) or 0 not in lens
+                or not any(0 < c < n and c % fd.TILE_SM90 for c in lens)):
             raise AssertionError(f"{what}: {launched} launches; want one a block with "
                                  "a filled row, an empty block and one cut mid-tile")
         rows.append({"at": "B{B} H{H} Hkv{Hkv} D{D} cache_len{clen}".format(**s),
@@ -2275,7 +2302,7 @@ def phase_parallel(kernels):
         scoped, seq = seq_parallel_scope(cfg, run, mesh, batches)
         family_launches = {spec["arch"]: parallel_family(spec, mesh, n)
                            for spec in PARALLEL_FAMILIES}
-        serve_launches = parallel_serve(mesh)
+        serve_counts = parallel_serve(mesh)
     finally:
         trainer.make_train_step = make_step
         dist.destroy_process_group()
@@ -2343,8 +2370,7 @@ def phase_parallel(kernels):
         if kern["name"] == "flash_fwd":
             kern["launches_parallel"] = counts["flash_fwd"]
             kern["launches_parallel_families"] = family_launches
-        if kern["name"] in serve_launches:
-            kern["launches_parallel_serve"] = serve_launches[kern["name"]]
+        kern["launches_parallel_serve"] = {m: c[kern["name"]] for m, c in serve_counts.items()}
 
 
 def served_logits(prefill, step, params, batch, n):
@@ -2376,49 +2402,63 @@ def served_logits(prefill, step, params, batch, n):
     return torch.cat(toks, dim=1), seen, ms
 
 
+def serve_launches(cfg, n):
+    """The kernels' launches of a prefill and ``n`` decode steps of ``cfg``'s
+    model in bf16: one forward an attention use (``attention_uses``), one
+    decode a self- or cross-attention a step."""
+    per_step = {"hybrid": cfg.hybrid_groups, "ssm": 0,
+                "encdec": 2 * cfg.dec_layers}.get(cfg.family, cfg.num_layers)
+    return {"flash_fwd": attention_uses(cfg), "flash_fwd_f32": 0,
+            "flash_decode": per_step * n, "flash_decode_f32": 0}
+
+
 def parallel_serve(mesh):
-    """Full-width qwen2.5-3b (bf16) served through the sharded steps
-    (``serve.decode``'s ``mesh=``) on the (1, 1) ``mesh``, its parameters
-    placed by ``serve.decode.init_params``, and through the unsharded steps
-    from ``api.init``'s weights: tokens and every step's logits equal bit for
-    bit, the sharded run's launches of each kernel counted (one bf16 forward
-    a layer, one bf16 decode a layer a step). Returns those counts."""
-    spec = SERVE_PARALLEL
-    cfg = registry.get(spec["arch"])
-    B, P, n = spec["batch"], spec["prompt_len"], spec["new_tokens"]
-    max_seq = P + n + 8
-    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))).to(DEV)
-    torch.cuda.reset_peak_memory_stats()
-    params = serve_decode.init_params(cfg, mesh, 0, device=DEV)
-    init_peak = torch.cuda.max_memory_allocated() / 1e9
-    reset_counts()
-    sharded = served_logits(make_prefill_step(cfg, max_seq=max_seq, mesh=mesh),
-                            make_serve_step(cfg, mesh=mesh), params, {"tokens": toks}, n)
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    del params
-    torch.cuda.empty_cache()
-    whole = api.cast_params(cfg, api.init(cfg, 0, device=DEV))
-    plain = served_logits(make_prefill_step(cfg, max_seq=max_seq), make_serve_step(cfg), whole,
-                          {"tokens": toks}, n)
-    del whole
-    torch.cuda.empty_cache()
-    equal = [bool(torch.equal(a, b)) for a, b in zip(sharded[1], plain[1])]
-    L = cfg.num_layers
-    emit({"phase": "parallel_serve", "model": cfg.name, "layers": L,
-          "mesh": {"data": 1, "model": 1}, "batch": B, "prompt_len": P, "new_tokens": n,
-          "launches": counts, "logits_equal": equal,
-          "tokens_equal": bool(torch.equal(sharded[0], plain[0])),
-          "sharded_ms": {"prefill": sharded[2][0], "decode": sharded[2][1:]},
-          "unsharded_ms": {"prefill": plain[2][0], "decode": plain[2][1:]},
-          "init_peak_memory_gb": init_peak, "peak_memory_gb": peak})
-    if not all(equal) or not torch.equal(sharded[0], plain[0]):
-        raise AssertionError(f"parallel_serve: the sharded steps on (1, 1) are not the "
-                             f"unsharded ones bit for bit: logits equal {equal}")
-    want = {"flash_fwd": L, "flash_fwd_f32": 0, "flash_decode": L * n, "flash_decode_f32": 0}
-    if counts != want:
-        raise AssertionError(f"parallel_serve: launches {counts}, want {want}")
-    return counts
+    """Each model of ``SERVE_PARALLEL`` at full width (bf16) served through
+    the sharded steps (``serve.decode``'s ``mesh=``) on the (1, 1) ``mesh``,
+    its parameters placed by ``serve.decode.init_params``, and through the
+    unsharded steps from ``api.init``'s weights: tokens and every step's
+    logits equal bit for bit, the sharded run's launches of each kernel
+    counted (``serve_launches``). Returns those counts, by model and kernel."""
+    launches = {}
+    for spec in SERVE_PARALLEL:
+        cfg = registry.get(spec["arch"])
+        B, P, n = spec["batch"], spec["prompt_len"], spec["new_tokens"]
+        max_seq = P + n + 8
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in token_batch(cfg, batch=B, seq=P, step=0).items()
+                 if k in ("tokens", "frames")}
+        torch.cuda.reset_peak_memory_stats()
+        params = serve_decode.init_params(cfg, mesh, 0, device=DEV)
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        reset_counts()
+        sharded = served_logits(make_prefill_step(cfg, max_seq=max_seq, mesh=mesh),
+                                make_serve_step(cfg, mesh=mesh), params, batch, n)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        torch.cuda.empty_cache()
+        whole = api.cast_params(cfg, api.init(cfg, 0, device=DEV))
+        plain = served_logits(make_prefill_step(cfg, max_seq=max_seq), make_serve_step(cfg),
+                              whole, batch, n)
+        del whole
+        torch.cuda.empty_cache()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(sharded[1], plain[1])]
+        emit({"phase": "parallel_serve", "model": cfg.name, "layers": layer_count(cfg),
+              "mesh": {"data": 1, "model": 1}, "batch": B, "prompt_len": P,
+              "frames": cfg.frontend_len if "frames" in batch else None, "new_tokens": n,
+              "launches": counts, "logits_equal": equal,
+              "tokens_equal": bool(torch.equal(sharded[0], plain[0])),
+              "sharded_ms": {"prefill": sharded[2][0], "decode": sharded[2][1:]},
+              "unsharded_ms": {"prefill": plain[2][0], "decode": plain[2][1:]},
+              "init_peak_memory_gb": init_peak, "peak_memory_gb": peak})
+        if not all(equal) or not torch.equal(sharded[0], plain[0]):
+            raise AssertionError(f"parallel_serve: {cfg.name}'s sharded steps on (1, 1) are "
+                                 f"not the unsharded ones bit for bit: logits equal {equal}")
+        want = serve_launches(cfg, n)
+        if counts != want:
+            raise AssertionError(f"parallel_serve: {cfg.name}'s launches {counts}, want {want}")
+        launches[cfg.name] = counts
+    return launches
 
 
 def seq_parallel_scope(cfg, run, mesh, batches):

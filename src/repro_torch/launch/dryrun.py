@@ -18,21 +18,16 @@ step (``xla_flops_per_device``, ``xla_bytes_per_device``,
 takes the place of the two times. ``mem.temp_bytes`` is the counter's peak of
 the bytes the step created, ``mem.peak_bytes`` that plus the arguments' bytes.
 
-Serving cells. The dense, vlm and moe families (``sharding.SERVE_FAMILIES``)
-run the sharded serving steps (``serve.decode``'s ``mesh=``) on the cell's
-arguments placed as ``DTensor``s: the parameters in the serving layout, the
-batch, the cache and the tokens by their specs; nothing is gathered whole.
-The hybrid, ssm and encdec families keep ROADMAP C29's route: each parameter
-is gathered from its placements (the all-gathers are counted) and each rank
-runs the unsharded step at full width over the batch and cache rows its data
-coordinates give it, or the whole batch where the rows do not divide over
-the data ranks. A decode cell is one new token against a full cache: the
-cache's ``idx`` is set to ``seq_len - 1``.
+Serving cells. Every cell, of every family, runs the sharded serving steps
+(``serve.decode``'s ``mesh=``) on the cell's arguments placed as
+``DTensor``s: the parameters in the serving layout, the batch, the cache
+and the tokens by their specs; nothing is gathered whole. A decode cell is
+one new token against a full cache (``long_500k``'s too, its cache laid out
+by ``seq_shard_cache``): the cache's ``idx`` is set to ``seq_len - 1``.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 import traceback
@@ -46,7 +41,6 @@ from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as specs_lib
-from repro_torch.models import api
 from repro_torch.parallel import sharding as shd
 from repro_torch.utils.cost import CostCounter, nbytes
 
@@ -75,8 +69,8 @@ def _place(args, shardings, mesh, requires_grad=False):
         for x, pl in zip(tree.leaves(args), tree.leaves(shardings, is_leaf=shd.is_spec))])
 
 
-def _sharded_serve_args(shape, cell, mesh):
-    """The arguments of a sharded serving cell, each placed by its entry of
+def _serve_args(shape, cell, mesh):
+    """The arguments of a serving cell, each placed by its entry of
     ``in_shardings``; a decode cell's cache at ``idx`` ``seq_len - 1``."""
     if shape.kind == "prefill":
         params, batch = cell["args"]
@@ -88,12 +82,6 @@ def _sharded_serve_args(shape, cell, mesh):
     placed["idx"] = shape.seq_len - 1
     return (_place(params, p_sh, mesh), placed,
             distribute_tensor(tokens, mesh, t_sh, src_data_rank=None))
-
-
-def _local_rows(n: int, mesh) -> int:
-    """The batch rows a rank runs in a serving cell of C29's route."""
-    fsdp = shd.fsdp_size(mesh)
-    return n // fsdp if n % fsdp == 0 else n
 
 
 def _train_args(cell, mesh):
@@ -108,36 +96,14 @@ def _train_args(cell, mesh):
             _place(batch, b_sh, mesh))
 
 
-def _serve_args(cfg, shape, cell, mesh):
-    """Placed parameters (gathered inside the counted step) and the rank's
-    rows of the batch or cache, as plain meta tensors."""
-    params = _place(cell["args"][0], cell["in_shardings"][0], mesh)
-    rows = _local_rows(shape.global_batch, mesh)
-    if shape.kind == "prefill":
-        batch = specs_lib.batch_struct(cfg, dataclasses.replace(shape, global_batch=rows),
-                                       kind="prefill")
-        return params, (batch,)
-    cache = api.init_cache(cfg, rows, shape.seq_len, dtype=torch.bfloat16, device="meta")
-    cache["idx"] = shape.seq_len - 1
-    return params, (cache, torch.empty((rows, 1), dtype=torch.int32, device="meta"))
-
-
 def run_cell(cfg, shape, mesh, mesh_kind: str, plan=None) -> dict:
     t0 = time.time()
     cell = specs_lib.build_cell(cfg, shape, mesh, plan=plan)
-    if shape.kind == "train" or cfg.family in shd.SERVE_FAMILIES:
-        args = (_train_args(cell, mesh) if shape.kind == "train"
-                else _sharded_serve_args(shape, cell, mesh))
-        arg_bytes = sum(nbytes(x) for x in tree.leaves(args) if isinstance(x, torch.Tensor))
-        with CostCounter() as c:
-            out = cell["fn"](*args)
-    else:
-        params, rest = _serve_args(cfg, shape, cell, mesh)
-        arg_bytes = sum(nbytes(x) for x in tree.leaves((params, rest))
-                        if isinstance(x, torch.Tensor))
-        with CostCounter() as c:
-            full = tree.map_leaves(lambda p: p.full_tensor(), params)
-            out = cell["fn"](full, *rest)
+    args = (_train_args(cell, mesh) if shape.kind == "train"
+            else _serve_args(shape, cell, mesh))
+    arg_bytes = sum(nbytes(x) for x in tree.leaves(args) if isinstance(x, torch.Tensor))
+    with CostCounter() as c:
+        out = cell["fn"](*args)
     t_run = time.time() - t0
     coll = c.collective_bytes()
     out_bytes = sum(nbytes(x) for x in tree.leaves(out) if isinstance(x, torch.Tensor))

@@ -13,16 +13,16 @@ placements leaves are tuples, ``sharding.is_spec``), ``donate``, ``plan`` and
 ``meta``. The train step takes its state as ``DTensor``s on a ``DeviceMesh``
 (``trainer.make_train_step(..., mesh=)``); it brings each gradient back in its
 parameter's placements whatever ``grad_acc_sharded`` says, as the reference
-does with that knob on. A serving cell of the dense, vlm and moe families
-(``sharding.SERVE_FAMILIES``) hands over the sharded serving steps
-(``serve.decode``'s ``mesh=``, ``seq_shard`` the plan's
+does with that knob on. A serving cell hands over the sharded serving
+steps (``serve.decode``'s ``mesh=``, ``seq_shard`` the plan's
 ``seq_shard_cache``), its parameters placed in the serving layout
 (``sharding.serve_specs``: whole over the data axes, where the reference
-places them by ``param_specs``), its cache by ``cache_specs``. The steps
-keep the residual whole on every model rank: the ``seq_shard_acts`` that
+places them by ``param_specs``; a Mamba2 layer's fused leaves rank-major,
+``sharding.rank_major``), its cache as ``sharding.serve_cache_specs`` says
+(``cache_specs``, a Mamba2 conv state rank-major). The steps keep the
+residual whole on every model rank: the ``seq_shard_acts`` that
 ``REPRO_PERF`` sets for command-r-plus-104b's prefill is not applied there
-(ROADMAP C38). The other families' serving cells keep the reference's
-placements and the unsharded steps (ROADMAP C29).
+(ROADMAP C38).
 """
 from __future__ import annotations
 
@@ -234,14 +234,10 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
             donate=(0,), plan=plan,
             meta=dict(kind="train", tokens=shape.tokens))
 
-    serve_params = _cast_float(param_struct, torch.bfloat16)
-    # the dense, vlm and moe families serve through the sharded steps, their
-    # parameters held in the serving layout; the others' cells keep the
-    # reference's placements and the unsharded steps (ROADMAP C29)
-    sharded = cfg.family in shd.SERVE_FAMILIES
-    if sharded:
-        pshard = _placed(shd.serve_specs(cfg, param_struct, mesh), mesh)
-    step_mesh = dict(mesh=mesh, seq_shard=plan.seq_shard_cache) if sharded else {}
+    # the serving layout: whole over the data axes, Segments leaves rank-major
+    serve_params = shd.rank_major(cfg, _cast_float(param_struct, torch.bfloat16), mesh)
+    pshard = _placed(shd.serve_specs(cfg, param_struct, mesh), mesh)
+    step_mesh = dict(mesh=mesh, seq_shard=plan.seq_shard_cache)
 
     if shape.kind == "prefill":
         step = _with_activation_ctx(
@@ -258,14 +254,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     # decode: one new token against a full cache
     B, S = shape.global_batch, shape.seq_len
-    cache_struct = api.init_cache(cfg, B, S, dtype=torch.bfloat16, device="meta")
-    cspec = shd.cache_specs(cfg, mesh, batch=B, seq_shard=plan.seq_shard_cache)
-    placed = {k: cache_struct[k] for k in cspec}        # idx, a host int, has none
-    cspec = tree.rebuild(cspec, [
-        shd.sanitize_spec(s, t.shape, mesh)
-        for s, t in zip(tree.leaves(cspec, is_leaf=shd.is_spec), tree.leaves(placed))],
-        is_leaf=shd.is_spec)
-    cshard = _placed(cspec, mesh)
+    cache_struct = shd.rank_major_cache(
+        cfg, api.init_cache(cfg, B, S, dtype=torch.bfloat16, device="meta"), mesh)
+    parts = {k: v for k, v in cache_struct.items() if k != "idx"}  # idx, a host int, has none
+    cshard = tree.rebuild(parts, [shd.placements(spec, mesh) for spec in shd.serve_cache_specs(
+        cfg, mesh, batch=B, max_seq=S, seq_shard=plan.seq_shard_cache)])
     tok_struct = _meta((B, 1), torch.int32)
     tok_shard = shd.placements((None,) if plan.seq_shard_cache else shd.batch_spec(mesh),
                                mesh)

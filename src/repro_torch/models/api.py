@@ -39,7 +39,7 @@ def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda", place=Non
     parameters' shapes and dtypes only (the counterpart of the reference's
     ``jax.eval_shape(lambda: api.init(cfg, key))``): nothing is drawn, so a model
     of any width builds in no memory, and ``seed`` is ignored. ``place`` is
-    ``transformer.init_lm``'s (the LM families only)."""
+    ``transformer.init_lm``'s (``encdec.init_encdec``'s for whisper)."""
     require_ported(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
@@ -48,9 +48,7 @@ def init(cfg, seed: Union[int, torch.Generator] = 0, *, device="cuda", place=Non
         gen = (layers.SHAPE_ONLY if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(int(seed)))
     if cfg.family == "encdec":
-        if place is not None:
-            raise NotImplementedError("place= is the LM families' (transformer.init_lm)")
-        return encdec.init_encdec(cfg, gen)
+        return encdec.init_encdec(cfg, gen, place)
     return transformer.init_lm(cfg, gen, place)
 
 

@@ -272,6 +272,25 @@ def _heads_of_rank(cfg, n_q: int, k, v):
     return k, v
 
 
+def _merged(acc, m, l, axes):
+    """The fp32 ``(acc, m, l)`` partials of this rank's block of a cache split
+    by sequence over ``axes``, gathered from every block
+    (``parallel.ctx.cache_seq_gather``) and merged (``merge_partial_attn``):
+    (B, H, D)."""
+    D = acc.shape[-1]
+    parts = pctx.cache_seq_gather(torch.cat([acc, m[..., None], l[..., None]], dim=-1), axes)
+    return merge_partial_attn(parts[..., :D], parts[..., D], parts[..., D + 1])
+
+
+def _cross_blocks(q, k, v, block, mode):
+    """A decode step's cross-attention (q (B, 1, H, D)) over this rank's
+    ``block`` of a cross cache split by sequence (every row filled): the
+    kernel's partials over the block, merged over ``block.seq_axes``."""
+    B, _, H, D = q.shape
+    acc, m, l = ops.decode_forward(q, k, v, k.shape[1], mode=mode, return_partials=True)
+    return _merged(acc, m, l, block.seq_axes).to(q.dtype).reshape(B, 1, H, D)
+
+
 def _decode_blocks(p, q, k, v, kv_cache, idx: int, block, cfg, *, split, every_kv, mode):
     """A decode step over this rank's ``block`` of a serving cache
     (``parallel.ctx.serving_cache``) whose sequence is split over
@@ -306,9 +325,7 @@ def _decode_blocks(p, q, k, v, kv_cache, idx: int, block, cfg, *, split, every_k
         f32 = dict(dtype=torch.float32, device=q.device)
         acc, m, l = (torch.zeros((B, H, D), **f32), torch.full((B, H), -math.inf, **f32),
                      torch.zeros((B, H), **f32))
-    parts = pctx.cache_seq_gather(torch.cat([acc, m[..., None], l[..., None]], dim=-1))
-    o = merge_partial_attn(parts[..., :D], parts[..., D], parts[..., D + 1])
-    o = o.to(q.dtype).reshape(B, 1, H * D)
+    o = _merged(acc, m, l, block.seq_axes).to(q.dtype).reshape(B, 1, H * D)
     dt = layers.to_dtype(cfg.compute_dtype)
     if every_kv:
         return layers.dense_joined_whole(p["wo"], o, dtype=dt)
@@ -316,7 +333,8 @@ def _decode_blocks(p, q, k, v, kv_cache, idx: int, block, cfg, *, split, every_k
 
 
 def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
-               cross_kv=None, attn_fn=None, use_rope=True, causal=None, mode=None):
+               cross_kv=None, cross_block=None, attn_fn=None, use_rope=True, causal=None,
+               mode=None):
     """Returns (out, new_kv) where new_kv is (k, v) of this call's tokens.
 
     kv_cache: optional (k_cache, v_cache) of shape (B, S_max, Hkv, D) -- decode
@@ -354,7 +372,10 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
     all with the whole ``wk`` / ``wv``, attends with those of its q heads and
     returns them all for the cache), and its block of the sequence. A decode
     step over a cache split by sequence, or holding every kv head while the
-    q heads split, takes ``_decode_blocks``.
+    q heads split, takes ``_decode_blocks``. ``cross_block``: a decode
+    step's ``cross_kv`` is that ``CacheBlock`` of a cross cache (an
+    encoder-decoder's ``block.cross``); where it splits by sequence its
+    partials are merged over the ranks (``_cross_blocks``).
     """
     hd = cfg.head_dim
     split, H, kv = _rank_heads(p, cfg)
@@ -378,7 +399,10 @@ def attn_apply(p, x, cfg, *, positions, kv_cache=None, cache_index=None,
         k, v = cross_kv
         if use_rope:
             q = layers.rope(q, positions, cfg.rope_theta)
-        o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
+        if cross_block is not None and cross_block.seq_axes:
+            o = _cross_blocks(q, k, v, cross_block, mode)
+        else:
+            o = cross_attend(q, k, v, attn_fn=attn_fn, mode=mode)
         out = out_proj(p["wo"], o.reshape(B, L, H * hd), dtype=dt)
         return (pctx.seq_rows(out) if rows else out), None
 

@@ -57,16 +57,23 @@ def _dec_block_init(gen, cfg):
     return p
 
 
-def init_encdec(cfg, gen: torch.Generator):
-    """Seeded parameters in fp32, on the generator's device."""
+def init_encdec(cfg, gen: torch.Generator, place=None):
+    """Seeded parameters in fp32, on the generator's device. ``place(key,
+    part)`` as ``transformer.init_lm``'s: the parts in the draws' order are
+    ``"emb"``, ``"pos_dec"``, each layer of ``"enc_blocks"`` and of
+    ``"dec_blocks"``, ``"enc_norm"`` and ``"dec_norm"``."""
     dev = gen.device
+    keep = place or (lambda key, part: part)
     return {
-        "emb": layers.embed_init(gen, cfg.vocab_size, cfg.d_model),
-        "pos_dec": layers.truncated_normal(gen, (POS_DEC_ROWS, cfg.d_model), 0.01),
-        "enc_blocks": [_enc_block_init(gen, cfg) for _ in range(cfg.enc_layers)],
-        "dec_blocks": [_dec_block_init(gen, cfg) for _ in range(cfg.dec_layers)],
-        "enc_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
-        "dec_norm": layers.norm_init(cfg.norm, cfg.d_model, device=dev),
+        "emb": keep("emb", layers.embed_init(gen, cfg.vocab_size, cfg.d_model)),
+        "pos_dec": keep("pos_dec", layers.truncated_normal(gen, (POS_DEC_ROWS, cfg.d_model),
+                                                           0.01)),
+        "enc_blocks": [keep("enc_blocks", _enc_block_init(gen, cfg))
+                       for _ in range(cfg.enc_layers)],
+        "dec_blocks": [keep("dec_blocks", _dec_block_init(gen, cfg))
+                       for _ in range(cfg.dec_layers)],
+        "enc_norm": keep("enc_norm", layers.norm_init(cfg.norm, cfg.d_model, device=dev)),
+        "dec_norm": keep("dec_norm", layers.norm_init(cfg.norm, cfg.d_model, device=dev)),
     }
 
 
@@ -103,7 +110,7 @@ def encode(cfg, params, frames, *, attn_fn=None, remat="full", mode=None):
 
 
 def _dec_block(blk, h, cfg, enc_kv, *, positions, kv=None, cache_index=None,
-               attn_fn=None, mode=None):
+               cross_block=None, attn_fn=None, mode=None):
     a = layers.apply_norm(cfg.norm, blk["attn_norm"], h)
     a, new_kv = attention.attn_apply(blk["attn"], a, cfg, positions=positions,
                                      kv_cache=kv, cache_index=cache_index,
@@ -112,7 +119,8 @@ def _dec_block(blk, h, cfg, enc_kv, *, positions, kv=None, cache_index=None,
     # the cross-attention takes no attn_fn, as in the reference
     xa = layers.apply_norm(cfg.norm, blk["xattn_norm"], h)
     xa, _ = attention.attn_apply(blk["xattn"], xa, cfg, positions=positions,
-                                 cross_kv=enc_kv, use_rope=False, mode=mode)
+                                 cross_kv=enc_kv, cross_block=cross_block, use_rope=False,
+                                 mode=mode)
     return _mlp(cfg, blk, h + xa), new_kv
 
 
@@ -163,9 +171,13 @@ def apply_encdec(cfg, params, frames, tokens, *, attn_fn=None, remat="full", mod
 # serving: prefill + single-token decode with a self cache and fixed cross K/V
 # ---------------------------------------------------------------------------
 
-def init_dec_cache(cfg, batch, max_seq, s_enc, dtype=torch.bfloat16, *, device):
-    shape = (cfg.dec_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    cross = (cfg.dec_layers, batch, s_enc, cfg.num_kv_heads, cfg.head_dim)
+def init_dec_cache(cfg, batch, max_seq, s_enc, dtype=torch.bfloat16, *, device,
+                   kv_heads=None, cross_heads=None):
+    """An empty cache; ``kv_heads`` / ``cross_heads`` (``cfg.num_kv_heads``
+    by default) are the kv heads of a rank's self / cross block
+    (``parallel.sharding.CacheBlock``)."""
+    shape = (cfg.dec_layers, batch, max_seq, kv_heads or cfg.num_kv_heads, cfg.head_dim)
+    cross = (cfg.dec_layers, batch, s_enc, cross_heads or cfg.num_kv_heads, cfg.head_dim)
     dt = layers.to_dtype(dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
@@ -182,36 +194,55 @@ def _prefill_block(blk, h, enc_h, cfg, *, positions, mode):
 
 def prefill_encdec(cfg, params, frames, tokens, *, max_seq=None, remat="full", mode=None):
     """Encodes ``frames``, runs the decoder over ``tokens`` and fills the cache.
-    Takes no ``attn_fn``, as the reference's. Returns (hidden, cache)."""
+    Takes no ``attn_fn``, as the reference's. Returns (hidden, cache).
+
+    Inside ``parallel.ctx.serving_cache`` the cache is this rank's blocks
+    (``parallel.sharding.CacheBlock``), as ``transformer.prefill_lm``'s:
+    the self cache's block of its batch rows, kv heads and ``max_seq``
+    positions, and the cross cache's (``block.cross``) of the kv heads the
+    rank's q heads project (``attention.project_cross_kv``) and of the
+    encoder's positions, which split where the heads do not."""
     enc_h = encode(cfg, params, frames, remat=remat, mode=mode)
     B, S = tokens.shape
-    cache = init_dec_cache(cfg, B, max_seq or S, enc_h.shape[1],
-                           dtype=cfg.compute_dtype, device=enc_h.device)
+    max_seq = max_seq or S
+    s_enc = enc_h.shape[1]
+    block = pctx.cache_block()
+    first, count, heads, cross, cross_heads = 0, max_seq, None, (0, s_enc), None
+    if block is not None:
+        (first, count), heads = block.seq, block.heads[1]
+        cross, cross_heads = block.cross.seq, block.cross.heads[1]
+    cache = init_dec_cache(cfg, B, count, cross[1], dtype=cfg.compute_dtype,
+                           device=enc_h.device, kv_heads=heads, cross_heads=cross_heads)
+    n = min(max(S - first, 0), count)             # the prompt's rows in the self block
     x = _embed_dec(cfg, params, tokens, 0)
     positions = torch.arange(S, device=x.device)[None, :]
-    block = _checkpointed(partial(_prefill_block, cfg=cfg, positions=positions, mode=mode),
-                          remat)
+    block_fn = _checkpointed(partial(_prefill_block, cfg=cfg, positions=positions, mode=mode),
+                             remat)
+    c0, c1 = cross[0], cross[0] + cross[1]
     for i, blk in enumerate(params["dec_blocks"]):
-        x, (k, v), (ck, cv) = block(blk, x, enc_h)
+        x, (k, v), (ck, cv) = block_fn(blk, x, enc_h)
         x = pctx.constrain(x)
-        cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        cache["cross_k"][i] = ck.to(cache["cross_k"].dtype)
-        cache["cross_v"][i] = cv.to(cache["cross_v"].dtype)
+        cache["k"][i, :, :n] = k[:, first:first + n].to(cache["k"].dtype)
+        cache["v"][i, :, :n] = v[:, first:first + n].to(cache["v"].dtype)
+        cache["cross_k"][i] = ck[:, c0:c1].to(cache["cross_k"].dtype)
+        cache["cross_v"][i] = cv[:, c0:c1].to(cache["cross_v"].dtype)
     cache["idx"] = S
     return layers.apply_norm(cfg.norm, params["dec_norm"], x), cache
 
 
 def decode_encdec(cfg, params, cache, tokens, *, mode=None):
-    """tokens: (B, 1). The cross-attention reads the cached encoder projections.
+    """tokens: (B, 1). The cross-attention reads the cached encoder projections
+    (inside ``parallel.ctx.serving_cache``, the rank's ``block.cross``).
     Returns (logits, cache), the cache updated in place."""
     idx = int(cache["idx"])
     x = _embed_dec(cfg, params, tokens, idx)
     positions = torch.full((1, 1), idx, dtype=torch.int64, device=x.device)
+    block = pctx.cache_block()
+    cross = None if block is None else block.cross
     for i, blk in enumerate(params["dec_blocks"]):
         x, _ = _dec_block(blk, x, cfg, (cache["cross_k"][i], cache["cross_v"][i]),
                           positions=positions, kv=(cache["k"][i], cache["v"][i]),
-                          cache_index=idx, mode=mode)
+                          cache_index=idx, cross_block=cross, mode=mode)
         x = pctx.constrain(x, "residual_dec")
     cache["idx"] = idx + 1
     x = layers.apply_norm(cfg.norm, params["dec_norm"], x)

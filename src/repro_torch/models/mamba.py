@@ -114,7 +114,8 @@ def mamba_apply(params, x, cfg, *, state=None):
     and z are joined over ``model`` before the inner norm, which spans every
     head. The norm and the gate then run alike on every rank, and
     ``out_proj`` is ``layers.dense_columns`` where the layout splits
-    ``d_model``. The state returned holds the rank's heads.
+    ``d_model``. A state given holds the rank's heads (and its convolution
+    channels), and so does the state returned.
 
     Under sequence parallelism (``parallel.ctx.seq_parallel()``) ``x`` is
     this model rank's rows and so is the output; the convolution and the

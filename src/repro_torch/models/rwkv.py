@@ -127,9 +127,12 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
     (``parallel.sharding.compute_layout``): the token-shift mixes and the
     LoRAs' first products run alike on every rank; ``wr`` / ``wk`` / ``wv`` /
     ``wg`` and ``decay_w2`` are ``layers.split_mm`` products on the rank's
-    heads, the scan, ``u`` and the per-head ``ln_x`` run on them (the rank's
-    heads of ``S0``, and the state returned is theirs), and ``wo`` is
-    ``layers.dense_joined`` over the ranks' heads.
+    heads, the scan, ``u`` and the per-head ``ln_x`` run on them, and ``wo``
+    is ``layers.dense_joined`` over the ranks' heads. ``S0`` is then a state
+    of every head (a prefill's zero state), of which the rank takes its
+    heads, or one of the rank's heads alone (the state a sharded prefill or
+    decode step returned, ``serve.decode``'s), taken as it is; the state
+    returned holds the rank's heads.
 
     Under sequence parallelism (``parallel.ctx.seq_parallel()``) ``x`` is
     this model rank's rows and so is ``y``: the mix runs on the sequence
@@ -159,7 +162,8 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
 
     if split:
         H //= pctx.model_size()
-        S0 = S0[:, pctx.model_index() * H:(pctx.model_index() + 1) * H]
+        if S0.shape[1] != H:                  # a state of every head: the rank's heads of it
+            S0 = S0[:, pctx.model_index() * H:(pctx.model_index() + 1) * H]
     logw = -torch.exp(w["decay"] + proj(torch.tanh(xw @ w["decay_w1"]), w["decay_w2"]))
     logw = torch.clamp(logw, -60.0, -1e-5)                                # (B,S,d) < 0
     r = proj(xr, p["wr"]["w"].float()).reshape(B, S, H, ph)
@@ -184,7 +188,8 @@ def time_mix(p, x, cfg, *, S0, x_prev, chunk: int = 64):
         y = layers.dense_joined(p["wo"], y.float() * g, dtype=torch.float32)
     else:
         y = pctx.seq_rows((y.float() * g) @ p["wo"]["w"].float())
-    return y.to(x.dtype), S_new, xf[:, -1]
+    # a copy: a view would keep the whole (B, S, d) fp32 input alive in a cache
+    return y.to(x.dtype), S_new, xf[:, -1].clone()
 
 
 def channel_mix(p, x, *, x_prev):
@@ -209,7 +214,7 @@ def channel_mix(p, x, *, x_prev):
         k = torch.square(F.relu(xk @ p["wk"]["w"].float()))
         kv = k @ p["wv"]["w"].float()
         y = torch.sigmoid(xr @ p["wr"]["w"].float()) * kv
-        return pctx.seq_rows(y).to(x.dtype), xf[:, -1]
+        return pctx.seq_rows(y).to(x.dtype), xf[:, -1].clone()
     k = torch.square(F.relu(layers.split_mm(layers.whole_input(xk), p["wk"]["w"].float())))
     kv = layers.joined_mm(k, p["wv"]["w"].float(), split=lay.d_model, join=False)
     if lay.d_model:
@@ -217,7 +222,7 @@ def channel_mix(p, x, *, x_prev):
         y = pctx.join_columns(torch.sigmoid(r) * kv)
     else:
         y = pctx.seq_rows(torch.sigmoid(xr @ p["wr"]["w"].float()) * kv)
-    return y.to(x.dtype), xf[:, -1]
+    return y.to(x.dtype), xf[:, -1].clone()
 
 
 def rwkv_state_init(cfg, batch, *, device):

@@ -239,32 +239,35 @@ def cast_params(cfg, params, dtype=None, device=None):
 # caches
 # ---------------------------------------------------------------------------
 
+def _kv_stack(cfg, layers_: int, batch: int, max_seq: int, dtype, device, kv_heads=None):
+    """A zero ``(layers_, batch, max_seq, Hkv, hd)`` K/V stack; ``kv_heads``
+    (``cfg.num_kv_heads`` by default) is the kv heads of a rank's block
+    (``parallel.sharding.CacheBlock``)."""
+    shape = (layers_, batch, max_seq, kv_heads or cfg.num_kv_heads, cfg.head_dim)
+    return torch.zeros(shape, dtype=layers.to_dtype(dtype), device=device)
+
+
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16, *, device,
                kv_heads: Optional[int] = None):
     """An empty cache; ``kv_heads`` (``cfg.num_kv_heads`` by default) is the
     kv heads of a rank's block (``parallel.sharding.CacheBlock``)."""
     _require_ported(cfg)
-    hd, hkv = cfg.head_dim, kv_heads or cfg.num_kv_heads
-    dt = layers.to_dtype(dtype)
+    kv = partial(_kv_stack, cfg, batch=batch, max_seq=max_seq, dtype=dtype, device=device,
+                 kv_heads=kv_heads)
     if cfg.family == "hybrid":
         # the Mamba2 states are fp32 whatever the compute type, as in the reference
-        shape = (cfg.hybrid_groups, batch, max_seq, hkv, hd)
         state = partial(mamba.mamba_state_init, cfg, batch, device=device)
         return {"prologue": [state() for _ in range(cfg.hybrid_prologue)],
                 "groups": [[state() for _ in range(cfg.hybrid_mamba_per_group)]
                            for _ in range(cfg.hybrid_groups)],
-                "attn_k": torch.zeros(shape, dtype=dt, device=device),
-                "attn_v": torch.zeros(shape, dtype=dt, device=device),
+                "attn_k": kv(cfg.hybrid_groups), "attn_v": kv(cfg.hybrid_groups),
                 "idx": 0}
     if cfg.family == "ssm":
         # fp32 states whatever the compute type, as in the reference
         return {"layers": [rwkv.rwkv_state_init(cfg, batch, device=device)
                            for _ in range(cfg.num_layers)],
                 "idx": 0}
-    shape = (cfg.num_layers, batch, max_seq, hkv, hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "idx": 0}
+    return {"k": kv(cfg.num_layers), "v": kv(cfg.num_layers), "idx": 0}
 
 
 # the entries of a cache holding per-layer states (lists of dicts, one tensor a
@@ -395,12 +398,14 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
                moe_impl: str = "einsum", mode=None):
     """Forward + build decode cache. Returns (hidden, cache).
 
-    Inside ``parallel.ctx.serving_cache`` the cache is this rank's block
+    The per-layer states (Mamba2's, RWKV6's) are those the forward returns;
+    only the K/V stacks are allocated here. Inside
+    ``parallel.ctx.serving_cache`` the cache is this rank's block
     (``parallel.sharding.CacheBlock``): its batch rows (``tokens`` are
     those rows), the kv heads ``attn_apply`` collected (its own, or every
     kv head where they do not split over ``model``) and its block of the
     ``max_seq`` positions, of which it keeps the prompt's rows that fall
-    there."""
+    there, and the states of the heads the rank computes."""
     hidden, _, kvs = apply_lm(cfg, params, tokens, embeds=embeds,
                               attn_fn=attn_fn, remat=remat, moe_impl=moe_impl,
                               collect_kv=True, mode=mode)
@@ -410,22 +415,23 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     first, count, heads = 0, max_seq, None
     if block is not None:
         (first, count), heads = block.seq, block.heads[1]
-    cache = init_cache(cfg, B, count, dtype=cfg.compute_dtype,
-                       device=hidden.device, kv_heads=heads)
-    cache["idx"] = S
     if cfg.family == "ssm":
-        cache["layers"] = kvs
-        return hidden, cache
+        return hidden, {"layers": kvs, "idx": S}
+    cache = {}
+    ks, vs = _KV_PARTS.get(cfg.family, ("k", "v"))
     if cfg.family == "hybrid":
         pro_states, groups = kvs
         cache["prologue"] = pro_states
         cache["groups"] = [states for states, _ in groups]
         kvs = [kv for _, kv in groups]
-    ks, vs = ("attn_k", "attn_v") if cfg.family == "hybrid" else ("k", "v")
+    for key in (ks, vs):
+        cache[key] = _kv_stack(cfg, len(kvs), B, count, cfg.compute_dtype, hidden.device,
+                               kv_heads=heads)
     n = S if block is None else min(max(S - first, 0), count)   # the prompt's rows here
     for i, (k, v) in enumerate(kvs):
         cache[ks][i, :, :n] = k[:, first:first + n].to(cache[ks].dtype)
         cache[vs][i, :, :n] = v[:, first:first + n].to(cache[vs].dtype)
+    cache["idx"] = S
     return hidden, cache
 
 

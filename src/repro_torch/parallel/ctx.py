@@ -494,15 +494,15 @@ def cache_block():
     return None if _CACHE is None else _CACHE[1]
 
 
-def cache_seq_gather(x):
-    """``x`` of every rank whose block of the cache's sequence differs from
-    this one's (the axes ``cache_block().seq_axes``), stacked on a new leading
-    dim, this rank's among them (an all-gather over each axis in turn): a
-    decode step's partials of each block, for their merge. ``x[None]`` where
-    no axis splits the sequence."""
-    mesh, block = _CACHE
+def cache_seq_gather(x, axes):
+    """``x`` of every rank whose block of a cache's sequence differs from
+    this one's (the ``axes`` that split it, a ``CacheBlock``'s ``seq_axes``),
+    stacked on a new leading dim, this rank's among them (an all-gather over
+    each axis in turn): a decode step's partials of each block, for their
+    merge. ``x[None]`` where no axis splits the sequence."""
+    mesh = _CACHE[0]
     out = x[None]
-    for a in reversed(block.seq_axes):
+    for a in reversed(axes):
         out = all_gather(out, 0, mesh.get_group(a))
     return out
 

@@ -88,12 +88,14 @@ gradients past the 1e-5 parity with one device (ROADMAP C32).
     leaf's split). An encoder's leaves (``STACK_LEAVES``) follow its own
     stack's answer.
 
-The serving steps (``serve.decode``'s ``mesh=``; the dense, vlm and moe
-families, ``SERVE_FAMILIES``) hold each bf16 leaf in its ``compute_layout``
-over ``model`` and whole over the data axes (``serve_specs``; ROADMAP C42),
-and each rank's block of a KV cache placed by ``cache_specs`` is a
-``CacheBlock`` (``cache_block``): its batch rows, its kv heads, its block of
-the sequence.
+The serving steps (``serve.decode``'s ``mesh=``, every family) hold each
+bf16 leaf in its ``compute_layout`` over ``model`` and whole over the data
+axes (``serve_specs``; ROADMAP C42), a ``Segments`` leaf rank-major
+(``rank_major``, C43). Each rank's block of a K/V stack placed by
+``cache_specs`` is a ``CacheBlock`` (``cache_block``): its batch rows, its
+kv heads, its block of the sequence, and an encoder-decoder's block of its
+cross cache; ``serve_cache_specs`` places every leaf of a cache, the
+per-layer states too.
 
 The rules read the axis sizes by name. They take a ``DeviceMesh`` with named
 dims, or any object with a dict ``.shape`` and ``.axis_names`` (a stand-in for
@@ -102,8 +104,8 @@ a mesh too large to build, as the planning tests use).
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
-from typing import Dict, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -329,9 +331,20 @@ class Segments:
     """A spec entry for a dim that joins segments of ``sizes`` columns: over
     ``model`` each rank takes its block of every segment whose ``split`` is
     set and the others whole, in order (a Mamba2 layer's fused ``in_proj``:
-    z, x, B, C, dt)."""
+    z, x, B, C, dt).
+
+    No ``Shard`` placement describes such a dim, since the whole segments
+    are on every rank. A serving replica holds the leaf **rank-major**: the
+    ranks' blocks (``take``) joined in rank order, a ``Shard`` of that
+    tensor over ``model`` (``serve_specs``; ROADMAP C43). ``to_rank_major``
+    and ``to_one_device`` map between the two layouts; at tp 1 both are the
+    identity."""
     sizes: Tuple[int, ...]
     split: Tuple[bool, ...]
+
+    def block_size(self, tp: int) -> int:
+        """The columns of one rank's block."""
+        return sum(size // tp if split else size for size, split in zip(self.sizes, self.split))
 
     def take(self, t, dim: int, tp: int, rank: int):
         """Model rank ``rank``'s columns of ``t`` (the whole dim) along ``dim``."""
@@ -343,6 +356,32 @@ class Segments:
             parts.append(t.narrow(dim, start + (rank * n if split else 0), n))
             start += size
         return torch.cat(parts, dim=dim)
+
+    def to_rank_major(self, t, dim: int, tp: int):
+        """``t`` (the one-device layout of the dim) as the ranks' blocks
+        joined in rank order: ``tp * block_size(tp)`` columns."""
+        if tp == 1:
+            return t
+        return torch.cat([self.take(t, dim, tp, r) for r in range(tp)], dim=dim)
+
+    def to_one_device(self, t, dim: int, tp: int):
+        """The inverse of ``to_rank_major``: the split segments' blocks joined
+        in rank order, a whole segment taken from rank 0's block."""
+        if tp == 1:
+            return t
+        blocks, parts, start = t.chunk(tp, dim=dim), [], 0
+        for size, split in zip(self.sizes, self.split):
+            n = size // tp if split else size
+            parts.extend(b.narrow(dim, start, n) for b in (blocks if split else blocks[:1]))
+            start += n
+        return torch.cat(parts, dim=dim)
+
+
+def conv_segments(cfg) -> Segments:
+    """The channels of a Mamba2 layer's convolution (its ``conv_w``,
+    ``conv_b`` and decode state): x by heads, B and C whole."""
+    N = cfg.ssm_state
+    return Segments((cfg.ssm_expand * cfg.d_model, N, N), (True, False, False))
 
 
 _COMPUTE_LEAF = re.compile(r"(attn/w[qkvo]|mlp/w[gud]|moe/w[gud]|moe/router|emb/table|unembed"
@@ -373,8 +412,7 @@ def _ssm_leaf(lay: ModelLayout, cfg, path: str, ndim: int):
             return (None, Segments((d_inner, d_inner, N, N, H),
                                    (True, True, False, False, True))), "sum"
         if path.endswith(("conv_w", "conv_b")):
-            return tuple(None for _ in range(ndim - 1)) + (
-                Segments((d_inner, N, N), (True, False, False)),), "sum"
+            return tuple(None for _ in range(ndim - 1)) + (conv_segments(cfg),), "sum"
         if path.endswith(("A_log", "/D", "dt_bias")):
             return ("model",), "shard"
         if path.endswith("out_proj/w") and lay.d_model:
@@ -504,6 +542,19 @@ def data_specs(cfg, shape_kind: str, mesh, *, batch: int):
     return specs
 
 
+def _kv_spec(cfg, mesh, seq_shard: bool) -> Tuple:
+    """``cache_specs``' spec of a ``(L, B, S, Hkv, hd)`` K/V stack."""
+    dp = fsdp_axes(mesh)
+    dpa = dp if len(dp) > 1 else dp[0]
+    seq_ax, batch_ax = (dpa, None) if seq_shard else (None, dpa)
+    if cfg.num_kv_heads % axis_sizes(mesh)["model"] == 0:
+        return (None, batch_ax, seq_ax, "model", None)   # (L,B,S,H,D)
+    if seq_shard:
+        return (None, batch_ax, (dpa, "model") if not isinstance(dpa, tuple)
+                else tuple(dpa) + ("model",), None, None)
+    return (None, batch_ax, "model", None, None)         # seq over model
+
+
 def cache_specs(cfg, mesh, *, batch: int, seq_shard: bool = False):
     """Specs for decode caches, in the port's cache tree. seq_shard=True -> SP
     layout for batch=1 long-context: KV sequence over 'data', heads over
@@ -514,17 +565,8 @@ def cache_specs(cfg, mesh, *, batch: int, seq_shard: bool = False):
     state lists (ssm ``layers``, hybrid ``prologue`` and ``groups``) hold one
     spec dict a layer, without the reference's stacking dims. ``idx`` is a host
     int here, so it has no spec."""
-    dp = fsdp_axes(mesh)
-    dpa = dp if len(dp) > 1 else dp[0]
-    seq_ax, batch_ax = (dpa, None) if seq_shard else (None, dpa)
-    heads_divisible = cfg.num_kv_heads % axis_sizes(mesh)["model"] == 0
-    if heads_divisible:
-        kv = (None, batch_ax, seq_ax, "model", None)   # (L,B,S,H,D)
-    elif seq_shard:
-        kv = (None, batch_ax, (dpa, "model") if not isinstance(dpa, tuple)
-              else tuple(dpa) + ("model",), None, None)
-    else:
-        kv = (None, batch_ax, "model", None, None)     # seq over model
+    kv = _kv_spec(cfg, mesh, seq_shard)
+    batch_ax = kv[1]
     if cfg.family in ("dense", "moe", "vlm"):
         return {"k": kv, "v": kv}
     if cfg.family == "ssm":
@@ -549,27 +591,46 @@ def cache_specs(cfg, mesh, *, batch: int, seq_shard: bool = False):
 # the serving layout (``serve.decode``'s sharded steps)
 # ---------------------------------------------------------------------------
 
-# the families whose serving steps are partitioned over the mesh; the hybrid,
-# ssm and encdec families' serving cells are not (ROADMAP C29)
-SERVE_FAMILIES = ("dense", "vlm", "moe")
-
-
 def serve_specs(cfg, params_shape, mesh):
     """The placements the serving steps hold their parameters in, one spec a
     leaf of ``params_shape`` (as ``param_specs`` gives them): each leaf in its
-    ``compute_layout`` over ``model`` (residual unsplit, no ``Segments``:
-    ``SERVE_FAMILIES``) and whole over the data axes, so that a step computes
-    on each rank's block with no gather. A serving replica holds its weights;
-    the reference's cells place them by ``param_specs`` and its GSPMD step
-    gathers them over the data axes at every step."""
-    if cfg.family not in SERVE_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family has no sharded serving "
-                                  f"layout; partitioned: {SERVE_FAMILIES}")
-    specs = [spec for spec, _ in compute_layout(cfg, params_shape, mesh)]
+    ``compute_layout`` over ``model`` (residual unsplit) and whole over the
+    data axes, so that a step computes on each rank's block with no gather.
+    A ``Segments`` entry is ``"model"`` over the leaf's rank-major layout
+    (``rank_major``). A serving replica holds its weights; the reference's
+    cells place them by ``param_specs`` and its GSPMD step gathers them over
+    the data axes at every step."""
+    specs = [tuple("model" if isinstance(e, Segments) else e for e in spec)
+             for spec, _ in compute_layout(cfg, params_shape, mesh)]
     return tree.rebuild(params_shape, specs, is_leaf=None)
 
 
-def _entry_axes(entry) -> Tuple[str, ...]:
+def _segment_map(cfg, params, mesh, to: str):
+    tp = axis_sizes(mesh)["model"]
+    out = []
+    for x, (spec, _) in zip(tree.leaves(params), compute_layout(cfg, params, mesh)):
+        for dim, e in enumerate(spec):
+            if isinstance(e, Segments):
+                x = getattr(e, to)(x, dim, tp)
+        out.append(x)
+    return tree.rebuild(params, out)
+
+
+def rank_major(cfg, params, mesh):
+    """``params`` (one device's layout: tensors, or meta tensors for shapes)
+    as the whole tensors of the serving layout (``serve_specs``): each leaf
+    with a ``Segments`` entry rank-major (``Segments.to_rank_major``), the
+    others as they are."""
+    return _segment_map(cfg, params, mesh, "to_rank_major")
+
+
+def one_device(cfg, params, mesh):
+    """The inverse of ``rank_major``."""
+    return _segment_map(cfg, params, mesh, "to_one_device")
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axes a spec entry names, in order (none for ``None``)."""
     return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
 
 
@@ -578,23 +639,27 @@ def entry_block(mesh, entry, size: int) -> Tuple[int, int]:
     ``entry`` splits: the axes' local ranks in mixed radix, in entry order
     (a ``DTensor`` splits a dim over its mesh dims in mesh order)."""
     sizes, i, n = axis_sizes(mesh), 0, 1
-    for a in _entry_axes(entry):
+    for a in entry_axes(entry):
         i, n = i * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
     return i * (size // n), size // n
 
 
 @dataclass(frozen=True)
 class CacheBlock:
-    """This rank's block of a ``(L, B, S_max, Hkv, hd)`` K/V cache placed by
-    ``cache_specs``: ``spec`` the stacks' spec after ``sanitize_spec``,
+    """This rank's block of a ``(L, B, S_max, Hkv, hd)`` K/V stack placed by
+    ``cache_specs``: ``spec`` the stack's spec after ``sanitize_spec``,
     ``rows`` / ``seq`` / ``heads`` each ``(first, count)`` of the batch, the
     sequence and the kv heads, ``seq_axes`` the axes of more than one rank
-    that split the sequence (their blocks' decode partials are merged)."""
+    that split the sequence (their blocks' decode partials are merged).
+    ``cross`` is an encoder-decoder's second block, of its cross-attention
+    cache (``S_max`` the encoder's length). A family without a K/V stack (the
+    ssm) has a block of its batch rows alone: ``spec`` splits dim 1 at most."""
     spec: Tuple
     rows: Tuple[int, int]
     seq: Tuple[int, int]
     heads: Tuple[int, int]
     seq_axes: Tuple[str, ...]
+    cross: Optional["CacheBlock"] = None
 
     @property
     def rows_split(self) -> bool:
@@ -603,14 +668,79 @@ class CacheBlock:
         return self.spec[1] is not None
 
 
-def cache_block(cfg, mesh, *, batch: int, max_seq: int, seq_shard: bool = False) -> CacheBlock:
+def _stack_spec(cfg, mesh, shape, seq_shard: bool) -> Tuple:
+    """The spec of a ``shape`` K/V stack after ``sanitize_spec``; a family
+    without one (the ssm) splits its batch rows alone."""
+    kv = _kv_spec(cfg, mesh, seq_shard)
+    if cfg.family == "ssm":
+        kv = (None, kv[1], None, None, None)
+    return sanitize_spec(kv, shape, mesh)
+
+
+def cache_block(cfg, mesh, *, batch: int, max_seq: int, seq_shard: bool = False,
+                s_enc: Optional[int] = None) -> CacheBlock:
     """This rank's ``CacheBlock`` of a cache of ``batch`` rows and ``max_seq``
-    positions (``cache_specs``, ``seq_shard`` its long-context layout)."""
-    kv = cache_specs(cfg, mesh, batch=batch, seq_shard=seq_shard)["k"]
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    spec = sanitize_spec(kv, shape, mesh)
+    positions (``cache_specs``, ``seq_shard`` its long-context layout); an
+    encoder-decoder's ``cross`` block holds ``s_enc`` encoder positions
+    (``cfg.frontend_len`` by default)."""
     sizes = axis_sizes(mesh)
-    return CacheBlock(spec=spec, rows=entry_block(mesh, spec[1], batch),
-                      seq=entry_block(mesh, spec[2], max_seq),
-                      heads=entry_block(mesh, spec[3], cfg.num_kv_heads),
-                      seq_axes=tuple(a for a in _entry_axes(spec[2]) if sizes[a] > 1))
+
+    def block(length):
+        spec = _stack_spec(cfg, mesh, (1, batch, length, cfg.num_kv_heads, cfg.head_dim),
+                           seq_shard)
+        return CacheBlock(spec=spec, rows=entry_block(mesh, spec[1], batch),
+                          seq=entry_block(mesh, spec[2], length),
+                          heads=entry_block(mesh, spec[3], cfg.num_kv_heads),
+                          seq_axes=tuple(a for a in entry_axes(spec[2]) if sizes[a] > 1))
+
+    out = block(max_seq)
+    if cfg.family == "encdec":
+        out = replace(out, cross=block(s_enc or cfg.frontend_len))
+    return out
+
+
+def serve_cache_specs(cfg, mesh, *, batch: int, max_seq: int, s_enc: Optional[int] = None,
+                      seq_shard: bool = False):
+    """The spec of each tensor of a cache of ``batch`` rows and ``max_seq``
+    positions (an encoder-decoder's cross cache ``s_enc``, by default
+    ``cfg.frontend_len``), in leaf order with ``idx`` left out, as the
+    serving steps place it over ``mesh``: the K/V stacks as ``cache_block``
+    splits them, a state leaf as ``cache_specs`` says (an RWKV6 ``S`` and a
+    Mamba2 ``ssm`` by heads, ``x_att`` / ``x_cmix`` whole over ``model``,
+    its rows as the stacks'), where a Mamba2 ``conv`` state, whose channels
+    a rank computes on are its ``conv_segments``, splits its rank-major
+    layout (``rank_major_cache``; C43). A state's heads split where the
+    layout's do (``ModelLayout.ssm_heads``)."""
+    def stack(length):
+        return _stack_spec(cfg, mesh, (1, batch, length, cfg.num_kv_heads, cfg.head_dim),
+                           seq_shard)
+
+    rows = stack(max_seq)[1]
+    split = model_layout(cfg, axis_sizes(mesh)["model"]).ssm_heads
+    out = []
+    for path, spec in tree.leaves_with_paths(cache_specs(cfg, mesh, batch=batch,
+                                                         seq_shard=seq_shard), is_leaf=is_spec):
+        if path[0] in ("k", "v", "attn_k", "attn_v"):
+            spec = stack(max_seq)
+        elif path[0] in ("cross_k", "cross_v"):
+            spec = stack(s_enc or cfg.frontend_len)
+        else:
+            spec = (rows,) + tuple(None if e == "model" and not split else e for e in spec[1:])
+        out.append(spec)
+    return out
+
+
+def rank_major_cache(cfg, cache, mesh):
+    """``cache`` (one device's layout: tensors, or meta tensors for shapes)
+    as the whole tensors of the serving layout (``serve_cache_specs``): each
+    Mamba2 ``conv`` state rank-major where the heads split
+    (``conv_segments``), the rest as it is."""
+    tp = axis_sizes(mesh)["model"]
+    if cfg.family != "hybrid" or not model_layout(cfg, tp).ssm_heads:
+        return cache
+    seg = conv_segments(cfg)
+    parts = {k: v for k, v in cache.items() if k != "idx"}
+    out = tree.rebuild(parts, [seg.to_rank_major(x, x.dim() - 1, tp) if path[-1] == "conv" else x
+                               for path, x in tree.leaves_with_paths(parts)])
+    out["idx"] = cache["idx"]
+    return out

@@ -3,28 +3,32 @@
 ``make_serve_step`` returns the decode step the engine runs: one new token per
 sequence against a resident KV cache.
 
-With ``mesh=`` (the dense, vlm and moe families, ``sharding.SERVE_FAMILIES``)
-both steps are partitioned over the mesh as the sharded train step is
-(``train.trainer``), forward only. The parameters are ``DTensor``s; each
-rank computes on its block of them in ``sharding.serve_specs``'s layout
-(``init_params`` and ``shard_params`` place them so; a step raises on a
-leaf placed otherwise), inside ``parallel.ctx.model_parallel`` with
+With ``mesh=`` (every family) both steps are partitioned over the mesh as the
+sharded train step is (``train.trainer``), forward only. The parameters are
+``DTensor``s; each rank computes on its block of them in
+``sharding.serve_specs``'s layout (``init_params`` and ``shard_params`` place
+them so, a Mamba2 layer's fused leaves rank-major; a step raises on a leaf
+placed otherwise), inside ``parallel.ctx.model_parallel`` with
 ``sharding.model_layout`` and the residual whole on every model rank. Each
 rank serves its rows of the batch (``parallel.ctx.data_parallel`` over the
 data axes; every rank the whole batch where the rows do not divide, or under
-``seq_shard``) from its block of the KV cache, which is placed as
-``sharding.cache_specs`` says (``sharding.CacheBlock``): its kv heads over
-``model``, or, where they do not divide, its block of the sequence, whose
-decode partials are merged over the ranks (``models.attention``). The batch
-and the tokens may be ``DTensor``s (the dry-run's) or plain tensors of the
-whole batch on every rank. A step returns this rank's rows of the next
-tokens, and the cache as ``DTensor``s of the rank's blocks (``idx`` a host
-int); the decode step updates the blocks in place. The greedy token over a
+``seq_shard``) from its block of every cache leaf, placed as
+``sharding.serve_cache_specs`` says: a K/V stack's kv heads over ``model``,
+or, where they do not divide, its block of the sequence, whose decode
+partials are merged over the ranks (``models.attention``;
+``sharding.CacheBlock``, an encoder-decoder's cross cache its ``cross``
+block), and each per-layer state (Mamba2's, RWKV6's) by heads. The batch and
+the tokens may be ``DTensor``s (the dry-run's) or plain tensors of the whole
+batch on every rank. A step returns this rank's rows of the next tokens, and
+the cache as ``DTensor``s of the rank's blocks (``idx`` a host int); the
+decode step writes the K/V blocks in place and puts the new states in the
+cache's lists, as the unsharded step does. The greedy token over a
 vocabulary split by ``model`` is ``parallel.ctx.vocab_argmax``'s.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 
 import torch
@@ -71,7 +75,9 @@ def _placed(local, whole, spec, mesh):
 
 def shard_params(cfg, params, mesh):
     """``params``, which every rank holds whole, as ``DTensor``s in the
-    serving layout (``sharding.serve_specs``): each rank keeps its blocks."""
+    serving layout (``sharding.serve_specs``; ``sharding.rank_major``): each
+    rank keeps its blocks."""
+    params = shd.rank_major(cfg, params, mesh)
     specs = tree.leaves(shd.serve_specs(cfg, params, mesh), is_leaf=shd.is_spec)
     return tree.rebuild(params, [_placed(_local_view(x, s, mesh), x, s, mesh)
                                  for x, s in zip(tree.leaves(params), specs)])
@@ -85,32 +91,36 @@ def init_params(cfg, mesh, seed=0, *, device="cuda", dtype=None):
     holds the whole tree; the values are ``shard_params(cfg,
     api.cast_params(cfg, api.init(cfg, seed, device=device), dtype), mesh)``'s."""
     def place(key, part):
-        whole = {key: [part] if key == "blocks" else part}
+        whole = shd.rank_major(cfg, {key: part}, mesh)
         leaves = tree.leaves(whole)
         specs = tree.leaves(shd.serve_specs(cfg, whole, mesh), is_leaf=shd.is_spec)
         views = tree.rebuild(whole, [_local_view(x, s, mesh) for x, s in zip(leaves, specs)])
         cast = tree.leaves(api.cast_params(cfg, views, dtype))
-        placed = tree.rebuild(whole, [_placed(c, x, s, mesh)
-                                      for c, x, s in zip(cast, leaves, specs)])[key]
-        return placed[0] if isinstance(placed, list) else placed
+        return tree.rebuild(whole, [_placed(c, x, s, mesh)
+                                    for c, x, s in zip(cast, leaves, specs)])[key]
 
     return api.init(cfg, seed, device=device, place=place)
 
 
+def _cache_lengths(cache):
+    """(positions of a cache's K/V stack, 1 for a family without one; its
+    encoder positions, ``None`` for a family without a cross cache)."""
+    kv = next((cache[k] for k in ("k", "attn_k") if k in cache), None)
+    cross = cache.get("cross_k")
+    return (1 if kv is None else kv.shape[2]), (None if cross is None else cross.shape[2])
+
+
 class _Layout:
     """What a sharded step reads of ``mesh``: the serving placements of the
-    parameters (once), the ``CacheBlock`` of a cache's global shape, and
-    the scope the model runs in."""
+    parameters (once), the ``CacheBlock`` and the placements of a cache's
+    global shape, and the scope the model runs in."""
 
     def __init__(self, cfg, mesh, seq_shard):
-        if cfg.family not in shd.SERVE_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family ({cfg.name}) has no sharded serving step; "
-                f"partitioned: {shd.SERVE_FAMILIES}")
         self.cfg, self.mesh, self.seq_shard = cfg, mesh, seq_shard
         self.layout = shd.model_layout(cfg, shd.axis_sizes(mesh)["model"])
         self.param_pl = None
         self.held = ([], None)      # weak references to the leaves, and their local tree
+        self.cache_pl = {}          # (batch, max_seq, s_enc) -> [(placements, spec)]
 
     def _drop_held(self, _ref=None):
         self.held = ([], None)
@@ -141,9 +151,21 @@ class _Layout:
         self.held = ([weakref.ref(p, self._drop_held) for p in leaves], local)
         return local
 
-    def block(self, batch: int, max_seq: int):
+    def block(self, batch: int, max_seq: int, s_enc=None):
         return shd.cache_block(self.cfg, self.mesh, batch=batch, max_seq=max_seq,
-                               seq_shard=self.seq_shard)
+                               seq_shard=self.seq_shard, s_enc=s_enc)
+
+    def cache_placements(self, batch: int, max_seq: int, s_enc=None):
+        """[(placements, spec)] of a cache's tensors in leaf order
+        (``sharding.serve_cache_specs``), ``idx`` left out."""
+        key = (batch, max_seq, s_enc)
+        if key not in self.cache_pl:
+            self.cache_pl[key] = [
+                (shd.placements(spec, self.mesh), spec)
+                for spec in shd.serve_cache_specs(self.cfg, self.mesh, batch=batch,
+                                                  max_seq=max_seq, s_enc=s_enc,
+                                                  seq_shard=self.seq_shard)]
+        return self.cache_pl[key]
 
     def rows(self, x, block):
         """This rank's rows of the batch tensor ``x``."""
@@ -163,33 +185,57 @@ class _Layout:
             s.enter_context(pctx.data_parallel(self.mesh))
         return s
 
-    def placed_cache(self, cache, block, batch: int, max_seq: int):
-        """The rank's cache blocks as ``DTensor``s of the global cache of
-        ``batch`` rows and ``max_seq`` positions."""
-        pl = shd.placements(block.spec, self.mesh)
-        out = {}
-        for key in ("k", "v"):
-            t = cache[key]
-            shape = torch.Size((t.shape[0], batch, max_seq, self.cfg.num_kv_heads, t.shape[4]))
-            out[key] = DTensor.from_local(t, self.mesh, pl, shape=shape,
-                                          stride=_contiguous_stride(shape))
+    def placed_cache(self, cache, placements):
+        """``cache``'s tensors (the rank's blocks) as ``DTensor``s placed as
+        ``placements`` says."""
+        parts = {k: v for k, v in cache.items() if k != "idx"}
+        out = tree.rebuild(parts, [_global(t, pl, spec, self.mesh) for t, (pl, spec)
+                                   in zip(tree.leaves(parts), placements)])
         out["idx"] = cache["idx"]
         return out
 
-    def local_cache(self, cache, block):
-        """The rank's blocks of ``cache`` (``DTensor``s placed as ``block``
-        says), the tensors the step writes in place."""
-        pl = shd.placements(block.spec, self.mesh)
-        out = {}
-        for key in ("k", "v"):
-            t = cache[key]
+    def local_cache(self, cache, placements):
+        """The rank's blocks of ``cache`` (``DTensor``s placed as ``placements``
+        says), the tensors the step reads and writes, in a cache of its own;
+        ``ValueError`` on a tensor placed otherwise."""
+        parts = {k: v for k, v in cache.items() if k != "idx"}
+        local = []
+        for (path, t), (pl, _) in zip(tree.leaves_with_paths(parts), placements):
             if not isinstance(t, DTensor) or tuple(t.placements) != pl:
-                raise ValueError(f"cache[{key!r}]: a sharded decode step takes the "
-                                 f"cache as DTensors placed {pl} (cache_specs), not "
+                raise ValueError(f"cache{list(path)}: a sharded decode step takes the "
+                                 f"cache as DTensors placed {pl} (serve_cache_specs), not "
                                  f"{type(t).__name__} {getattr(t, 'placements', '')}")
-            out[key] = t.to_local()
+            local.append(t.to_local())
+        out = tree.rebuild(parts, local)
         out["idx"] = cache["idx"]
         return out
+
+    def write_back(self, cache, local, before, placements):
+        """Puts into ``cache`` (``DTensor``s, in place) each tensor of
+        ``local`` (its blocks after a decode step) that is not the block
+        ``before`` held (the step's input, in leaf order): the per-layer
+        states the step made anew; the K/V blocks were written in place."""
+        parts = {k: v for k, v in cache.items() if k != "idx"}
+        for (path, _), old, new, (pl, spec) in zip(
+                tree.leaves_with_paths(parts), before,
+                tree.leaves({k: v for k, v in local.items() if k != "idx"}), placements):
+            if new is not old:
+                node = cache
+                for p in path[:-1]:
+                    node = node[p]
+                node[path[-1]] = _global(new, pl, spec, self.mesh)
+        cache["idx"] = local["idx"]
+
+
+def _global(t, pl, spec, mesh):
+    """``t``, this rank's block, as a ``DTensor`` placed ``pl`` (``spec``):
+    its global shape is the block's, each dim ``spec`` splits times the
+    blocks there (equal blocks: ``sharding.sanitize_spec`` keeps an axis only
+    where it divides the dim)."""
+    sizes = shd.axis_sizes(mesh)
+    shape = torch.Size(n * math.prod(sizes[a] for a in shd.entry_axes(e))
+                       for n, e in zip(t.shape, spec))
+    return DTensor.from_local(t, mesh, pl, shape=shape, stride=_contiguous_stride(shape))
 
 
 def _contiguous_stride(shape):
@@ -225,11 +271,12 @@ def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
         if lay is None:
             return run(params, batch)
         B = batch["tokens"].shape[0]          # a DTensor's shape is the global one
-        block = lay.block(B, max_seq)
+        s_enc = batch["frames"].shape[1] if "frames" in batch else None
+        block = lay.block(B, max_seq, s_enc)
         local = {k: lay.rows(v, block) for k, v in batch.items()}
         with lay.scope(block):
             next_tok, cache = run(lay.params(params), local)
-        return next_tok, lay.placed_cache(cache, block, B, max_seq)
+        return next_tok, lay.placed_cache(cache, lay.cache_placements(B, max_seq, s_enc))
     return prefill_step
 
 
@@ -247,10 +294,13 @@ def make_serve_step(cfg, *, mode=None, mesh=None, seq_shard: bool = False):
         """tokens: (B, 1) -> (next_token (B,1), cache); the cache is updated in place."""
         if lay is None:
             return run(params, cache, tokens)
-        block = lay.block(tokens.shape[0], cache["k"].shape[2])
-        local = lay.local_cache(cache, block)
+        B, (max_seq, s_enc) = tokens.shape[0], _cache_lengths(cache)
+        block = lay.block(B, max_seq, s_enc)
+        placements = lay.cache_placements(B, max_seq, s_enc)
+        local = lay.local_cache(cache, placements)
+        before = tree.leaves({k: v for k, v in local.items() if k != "idx"})
         with lay.scope(block):
             next_tok, local = run(lay.params(params), local, lay.rows(tokens, block))
-        cache["idx"] = local["idx"]
+        lay.write_back(cache, local, before, placements)
         return next_tok, cache
     return serve_step

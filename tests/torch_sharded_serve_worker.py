@@ -18,14 +18,18 @@ default), ``seq_shard`` (the cache's long-context layout), ``store``,
 
 serves full-width ``arch`` in bf16 on one card a rank (NCCL; without
 ``torch.distributed.run``, one rank on one card): 8 prompts of 512 tokens
-and 16 new tokens by default (qwen's traffic), ``--tp`` model ranks
-(default: all), with ``--compare`` the same on one card (rank 0, after the
-mesh's run: the first decode step's logits and the share of equal greedy
-tokens; needs the whole model on one card), ``--cut num_layers=N`` to cut
-the depth. A first, short run warms the card; the second is timed. It writes
-the prefill ms, each decode step's ms, tokens/s, every rank's peak memory
-and the kernels' launch counts to ``F.json``. ``--device cpu --reduced``
-runs the same on gloo ranks on the host, to rehearse.
+and 16 new tokens by default (qwen's traffic; an encoder-decoder's stub
+frames ``frontend_len`` long), ``--tp`` model ranks (default: all), with
+``--compare`` the same on one card (rank 0, after the mesh's run: the first
+decode step's logits and the share of equal greedy tokens; needs the whole
+model on one card), ``--cut num_layers=N`` to cut the depth. A first, short
+run warms the card; the second is timed. It writes the prefill ms, each
+decode step's ms, tokens/s, every rank's peak memory and the kernels' launch
+counts to ``F.json``. ``--long N`` runs the long-context decode instead: batch
+1 under the ``seq_shard`` layout, from a cache of N positions filled with
+seeded values (no prefill), ``--new`` timed steps after a warm one
+(``long_main``). ``--device cpu --reduced`` runs the same on gloo ranks on the
+host, to rehearse.
 """
 import argparse
 import contextlib
@@ -52,12 +56,14 @@ from repro_torch.serve import decode
 
 def serve_inputs(cfg, batch: int, prompt: int, seed: int = 0):
     """The prompts (numpy int64, (batch, prompt)) and, for a vlm, the prefix
-    embeddings (float32, (batch, frontend_len, d_model)), from ``seed``."""
+    embeddings, for an encoder-decoder the stub frames (float32, (batch,
+    frontend_len, d_model)), from ``seed``."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt))}
-    if cfg.family == "vlm":
-        out["embeds"] = (0.5 * rng.standard_normal((batch, cfg.frontend_len, cfg.d_model))
-                         ).astype(np.float32)
+    key = {"vlm": "embeds", "encdec": "frames"}.get(cfg.family)
+    if key:
+        out[key] = (0.5 * rng.standard_normal((batch, cfg.frontend_len, cfg.d_model))
+                    ).astype(np.float32)
     return out
 
 
@@ -202,8 +208,29 @@ def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=
             if traced:
                 summary = profile_summary(prof, ms[-1])
             toks.append(tok)
-    local = tuple(cache["k"].to_local().shape)
-    return torch.cat(toks, dim=1), block, local, rec, ms, summary
+    return torch.cat(toks, dim=1), block, local_shapes(cache), rec, ms, summary
+
+
+def local_shapes(cache):
+    """{"/"-joined path: the rank's block's shape} of each cache tensor."""
+    return {"/".join(map(str, path)): tuple(t.to_local().shape)
+            for path, t in tree.leaves_with_paths({k: v for k, v in cache.items()
+                                                   if k != "idx"})}
+
+
+def kv_local_shape(local):
+    """The local shape of the self K/V stack among ``local_shapes``' (``None``
+    for a family without one)."""
+    return next((local[k] for k in ("k", "attn_k") if k in local), None)
+
+
+def block_dict(block):
+    """A ``CacheBlock`` as plain data, its ``cross`` block too."""
+    out = {"rows": block.rows, "seq": block.seq, "heads": block.heads,
+           "seq_axes": block.seq_axes, "spec": block.spec}
+    if block.cross is not None:
+        out["cross"] = block_dict(block.cross)
+    return out
 
 
 def _clock(device):
@@ -221,8 +248,12 @@ def run_job(rank, world, job):
     mesh = make_mesh(tuple(job["mesh"]), ("data", "model"))
     whole = api.init(cfg, 0, device="cpu")
     params = decode.shard_params(cfg, whole, mesh)
-    # no rank holds a leaf the layout splits whole
-    for p, w in zip(tree.leaves(params), tree.leaves(whole)):
+    # no rank holds a leaf the layout splits whole; a Segments leaf is its
+    # rank-major layout, the one-device leaf again through the inverse map
+    major = shd.rank_major(cfg, whole, mesh)
+    for a, b in zip(tree.leaves(shd.one_device(cfg, major, mesh)), tree.leaves(whole)):
+        assert torch.equal(a, b)
+    for p, w in zip(tree.leaves(params), tree.leaves(major)):
         assert isinstance(p, DTensor) and p.shape == w.shape
         split = any(pl.is_shard() for pl in p.placements)
         assert (p.to_local().numel() < w.numel()) == split
@@ -241,16 +272,15 @@ def run_job(rank, world, job):
     out = {"tokens": _rows_of_every_rank(toks, block).tolist(),
            "logits": [_rows_of_every_rank(x, block).tolist() for x in rec.logits],
            "moe_groups": rec.groups,
-           "block": {"rows": block.rows, "seq": block.seq, "heads": block.heads,
-                     "seq_axes": block.seq_axes, "spec": block.spec},
-           "cache_local_shape": local,
+           "block": block_dict(block),
+           "cache_local_shape": kv_local_shape(local), "cache_local_shapes": local,
            "decode_blocks": rec.blocks, "decode_calls": rec.decode_calls,
            "partials_calls": rec.partials_calls,
            "layout": dataclasses.asdict(shd.model_layout(cfg, job["mesh"][1]))}
     every = [None] * world
     dist.all_gather_object(every, {k: out[k] for k in ("block", "cache_local_shape",
-                                                       "decode_blocks", "decode_calls",
-                                                       "partials_calls")})
+                                                       "cache_local_shapes", "decode_blocks",
+                                                       "decode_calls", "partials_calls")})
     out["ranks"] = every
     if rank == 0:
         with open(job["out"] + ".json", "w") as f:
@@ -276,6 +306,124 @@ def _reset_peak(dev):
         torch.cuda.reset_peak_memory_stats(dev)
 
 
+_KV_KEYS = ("k", "v", "attn_k", "attn_v")
+
+
+def seeded_cache(cfg, mesh, batch: int, max_seq: int, idx: int, device, chunk: int = 4096):
+    """A decode cache of ``batch`` rows and ``max_seq`` positions filled with
+    seeded values, at ``idx``: with ``mesh``, this rank's blocks as
+    ``DTensor``s placed as the long-context serving layout places them
+    (``sharding.serve_cache_specs`` with ``seq_shard``), each drawn without
+    drawing the whole; without, the whole cache on one device. Both hold the
+    same values: a K/V stack is drawn by layer and ``chunk`` positions, every
+    head at once, and cut to the rank's heads and positions; a state (small)
+    is drawn whole (0.1 of a normal draw) and cut, a Mamba2 ``conv`` state
+    through its rank-major layout (``sharding.rank_major_cache``)."""
+    one = api.init_cache(cfg, batch, max_seq, dtype=cfg.compute_dtype, device="meta")
+    parts = {k: v for k, v in one.items() if k != "idx"}
+    specs = (shd.serve_cache_specs(cfg, mesh, batch=batch, max_seq=max_seq, seq_shard=True)
+             if mesh is not None else [None] * len(tree.leaves(parts)))
+    tp = 1 if mesh is None else shd.axis_sizes(mesh)["model"]
+    major = dict(shd.rank_major_cache(cfg, one, mesh) if mesh is not None else one)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def block(spec, dim, size):
+        return (0, size) if spec is None else shd.entry_block(mesh, spec[dim], size)
+
+    local = []
+    for i, ((path, x), spec) in enumerate(zip(tree.leaves_with_paths(parts), specs)):
+        if path[0] in _KV_KEYS:
+            L, B, S, H, D = x.shape
+            (r0, nr), (s0, ns), (h0, nh) = (block(spec, d, x.shape[d]) for d in (1, 2, 3))
+            t = torch.empty((L, nr, ns, nh, D), dtype=x.dtype, device=device)
+            for layer in range(L):
+                for c in range(s0 // chunk, -(-(s0 + ns) // chunk)):
+                    g = torch.Generator(device=device).manual_seed(
+                        (i * 1000 + layer) * 100000 + c)
+                    draw = torch.randn((B, chunk, H, D), generator=g, **f32).to(x.dtype)
+                    t[layer, :, c * chunk - s0:(c + 1) * chunk - s0] = \
+                        draw[r0:r0 + nr, :, h0:h0 + nh]
+        else:
+            g = torch.Generator(device=device).manual_seed(i)
+            t = (0.1 * torch.randn(tuple(x.shape), generator=g, **f32)).to(x.dtype)
+            if spec is not None:
+                if path[-1] == "conv" and tp > 1 and spec[-1] == "model":
+                    t = shd.conv_segments(cfg).to_rank_major(t, t.dim() - 1, tp)
+                for d, e in enumerate(spec):
+                    if e is not None:
+                        t = t.narrow(d, *shd.entry_block(mesh, e, t.shape[d])).clone()
+        local.append(t)
+    if mesh is not None:
+        glob = tree.leaves({k: v for k, v in major.items() if k != "idx"})
+        local = [DTensor.from_local(t, mesh, shd.placements(spec, mesh), shape=g.shape,
+                                    stride=g.stride())
+                 for t, spec, g in zip(local, specs, glob)]
+    cache = tree.rebuild(parts, local)
+    cache["idx"] = idx
+    return cache
+
+
+def decode_steps(cfg, mesh, params, cache, n: int, device):
+    """``n`` greedy decode steps from ``cache`` (batch 1, the long-context
+    layout over ``mesh``; one device without), from token 7: (tokens (1, n),
+    a ``Recorder``, ms of each step)."""
+    step = decode.make_serve_step(cfg, mesh=mesh, seq_shard=mesh is not None)
+    tok = torch.full((1, 1), 7, dtype=torch.int32, device=device)
+    toks, ms = [], []
+    with Recorder(cfg) as rec:
+        for _ in range(n):
+            t0 = _clock(device)
+            tok, cache = step(params, cache, tok)
+            ms.append(_clock(device) - t0)
+            toks.append(tok)
+    return torch.cat(toks, dim=1), rec, ms
+
+
+def long_main(args, cfg, mesh, dev, rank, world):
+    """``--long N``: the long-context decode cell at batch 1, no prefill: a
+    cache of N positions filled with seeded values (``seeded_cache``), one
+    warm decode step then ``--new`` timed ones, the last writing position N -
+    1; with ``--compare`` the same on one card (rank 0)."""
+    n = args.new
+    idx = args.long - n - 1
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    params = decode.init_params(cfg, mesh, 0, device=dev)
+    cache = seeded_cache(cfg, mesh, 1, args.long, idx, dev)
+    set_up_s, set_up_peak = time.perf_counter() - t0, _peak(dev)
+    before = _launches()
+    toks, rec, ms = decode_steps(cfg, mesh, params, cache, n + 1, dev)
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    peaks = [None] * world
+    dist.all_gather_object(peaks, [set_up_peak, _peak(dev)])
+    block = shd.cache_block(cfg, mesh, batch=1, max_seq=args.long, seq_shard=True)
+    out = {"arch": cfg.name, "cut": args.cut, "mesh": dict(zip(("data", "model"), mesh.shape)),
+           "long": args.long, "start_idx": idx, "new_tokens": n,
+           "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+           "compute_dtype": cfg.compute_dtype,
+           "layout": dataclasses.asdict(shd.model_layout(cfg, mesh.shape[1])),
+           "cache_block": dict(block_dict(block), local_shapes=local_shapes(cache)),
+           "set_up_s": set_up_s, "warm_step_ms": ms[0], "decode_ms": ms[1:],
+           "launches": launches, "decode_partials_calls": rec.partials_calls,
+           "set_up_peak_gb": [p[0] for p in peaks], "steps_peak_gb": [p[1] for p in peaks]}
+    logits = [x.cpu() for x in rec.logits]
+    del params, cache, rec
+    _reset_peak(dev)
+    if args.compare and rank == 0:
+        whole = api.cast_params(cfg, api.init(cfg, 0, device=dev))
+        one_toks, one_rec, one_ms = decode_steps(
+            cfg, None, whole, seeded_cache(cfg, None, 1, args.long, idx, dev), n + 1, dev)
+        out["one_card"] = {"peak_gb": _peak(dev), "decode_ms": one_ms[1:]}
+        # each step's logits against one card's (relative to max(|x|, 1)): a
+        # step after the first token that differs reads another sequence
+        out["logits_max_rel_by_step"] = [
+            float(((a - b.cpu()).abs() / b.cpu().abs().clamp(min=1.0)).max())
+            for a, b in zip(logits, one_rec.logits)]
+        out["tokens_equal_by_step"] = (one_toks.cpu() == toks.cpu())[0].tolist()
+        del whole, one_rec
+    return out
+
+
 def chip_main(argv):
     ap = argparse.ArgumentParser(prog="torch_sharded_serve_worker.py --chip")
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -293,6 +441,9 @@ def chip_main(argv):
     ap.add_argument("--dtype", default=None, help="the compute type (the config's by default)")
     ap.add_argument("--profile", action="store_true",
                     help="the last decode step (and one card's, with --compare) profiled")
+    ap.add_argument("--long", type=int, default=None, metavar="N",
+                    help="the long-context decode at batch 1 from a seeded cache of N "
+                         "positions (long_main), no prefill")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     rank, world = int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
@@ -316,6 +467,10 @@ def chip_main(argv):
     cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg, **cut,
                               **({"compute_dtype": args.dtype} if args.dtype else {}))
     mesh = make_mesh((world // tp, tp), ("data", "model"))
+    if args.long:
+        out = long_main(args, cfg, mesh, dev, rank, world)
+        _finish(args, out, rank, store)
+        return
     max_seq = args.prompt + args.new
     inputs = serve_inputs(cfg, args.batch, args.prompt)
     _reset_peak(dev)
@@ -340,8 +495,7 @@ def chip_main(argv):
            "batch": args.batch, "prompt": args.prompt, "new_tokens": args.new,
            "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
            "layout": dataclasses.asdict(shd.model_layout(cfg, tp)),
-           "cache_block": {"rows": block.rows, "seq": block.seq, "heads": block.heads,
-                           "seq_axes": block.seq_axes, "local_shape": local},
+           "cache_block": dict(block_dict(block), local_shapes=local),
            "set_up_s": set_up_s, "prefill_ms": ms[0], "decode_ms": ms[1:],
            "tokens_per_s": args.batch * args.new / (sum(ms) / 1e3),
            "decode_tokens_per_s": args.batch * (args.new - 1) / (sum(ms[1:]) / 1e3),
@@ -365,6 +519,12 @@ def chip_main(argv):
         out["first_decode_logits_max_abs"] = float(diff.max())
         out["first_decode_logits_max_rel"] = float((diff / want.abs().clamp(min=1.0)).max())
         del whole
+    _finish(args, out, rank, store)
+
+
+def _finish(args, out, rank, store):
+    """Rank 0 writes ``out`` to ``--out`` and prints it; every rank leaves
+    the group."""
     if rank == 0:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -154,7 +154,12 @@ Phases, each printing one JSON line:
            serve.decode.init_params: tokens and every step's logits equal
            the unsharded steps' bit for bit, launches asserted (one bf16
            forward an attention use, one bf16 decode a self- or
-           cross-attention a step; none for rwkv6) and printed
+           cross-attention a step; none for rwkv6) and printed; qwen2.5-3b
+           once more inside a cell's activation scope whose residual spec
+           splits the prefill's residual by sequence (REPRO_PERF's
+           seq_shard_acts; serve.decode.seq_split holds): at one model rank
+           the split is the identity, so tokens and logits equal the unsplit
+           sharded steps' bit for bit, with the same launches
   examples the port's example scripts (examples/torch_*.py) on the card, in
            this process, each through its main(): torch_quickstart as the
            JAX package's quickstart sizes it (reduced olmo-1b, 8 steps, then 6
@@ -163,10 +168,13 @@ Phases, each printing one JSON line:
            at its 100M model, 40 steps, once whole (saving at its end alone)
            and once with a checkpoint every 10, preempted at 20 (exit code 17)
            and run again on the same directory, which resumes from step 20:
-           its 20 losses must equal the whole run's steps 21-40 bit for bit.
-           Asserts each script's bf16 kernel launches exactly and no fp32
-           launch; prints per script the wall seconds, tokens/s, launches by
-           route and peak memory, and the train script's last save and its
+           its 20 losses must equal the whole run's steps 21-40 bit for bit;
+           the simulator twins torch_analyze_pipeline (--model 8B --seqlen
+           256 --knob tma_bw=0.5,1,2) and torch_simulate_dse, host work.
+           Asserts each script's bf16 kernel launches exactly (none for the
+           simulator twins) and no fp32 launch; prints per script the wall
+           seconds, tokens/s, launches by route and peak memory, and the
+           train script's last save and its
            restore in seconds. Then the step that the JAX package's manager
            wrote, committed under tests/data/jax_ckpt_olmo-1b (olmo-1b
            reduced, step 2), restored on the card into plain tensors and into
@@ -284,6 +292,8 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (4, 32, 32, 512, 512, 112),    # zamba2-7b's sharded prefill of 4 prompts on (1, 1)
     (8, 8, 8, 512, 512, 112),      # zamba2-7b's prefill on a rank's 8 heads (tp 4)
     (4, 5, 5, 64, 64, 64),         # whisper-large-v3's decoder prefill, a rank's 5 heads
+    (1, 24, 2, 4096, 4096, 128),   # command-r-plus-104b's prefill on a rank's heads (tp 4),
+                                   # G 12; at its 32768 positions the plain scores need ~103 GB
 ]
 FWD_STAGES = [  # bf16, both masks, at every ring depth the forward is built with
     (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
@@ -383,6 +393,8 @@ SERVE_PARALLEL = [dict(arch="qwen2.5-3b", batch=4, prompt_len=512, new_tokens=8)
                   dict(arch="zamba2-7b", batch=4, prompt_len=512, new_tokens=8),
                   dict(arch="rwkv6-7b", batch=4, prompt_len=512, new_tokens=8),
                   dict(arch="whisper-large-v3", batch=4, prompt_len=64, new_tokens=8)]
+# served once more inside a scope that splits the prefill's residual by sequence
+SEQ_SPLIT_SERVE = ("qwen2.5-3b",)
 COST = dict(arch="qwen2.5-3b", prompt_len=512, slots=4, clen=520, max_seq=1024)
 BOUND_OVER_BUSY = 1.05  # a roofline bound above the card's own busy time means a count or a
                         # constant is wrong; 5 % for the profiler's own spread
@@ -2435,6 +2447,7 @@ def parallel_serve(mesh):
                                 make_serve_step(cfg, mesh=mesh), params, batch, n)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        split = seq_split_serve(cfg, mesh, params, batch, max_seq, n, sharded)
         del params
         torch.cuda.empty_cache()
         whole = api.cast_params(cfg, api.init(cfg, 0, device=DEV))
@@ -2450,15 +2463,46 @@ def parallel_serve(mesh):
               "tokens_equal": bool(torch.equal(sharded[0], plain[0])),
               "sharded_ms": {"prefill": sharded[2][0], "decode": sharded[2][1:]},
               "unsharded_ms": {"prefill": plain[2][0], "decode": plain[2][1:]},
-              "init_peak_memory_gb": init_peak, "peak_memory_gb": peak})
+              "init_peak_memory_gb": init_peak, "peak_memory_gb": peak,
+              "split_prefill": split})
         if not all(equal) or not torch.equal(sharded[0], plain[0]):
             raise AssertionError(f"parallel_serve: {cfg.name}'s sharded steps on (1, 1) are "
                                  f"not the unsharded ones bit for bit: logits equal {equal}")
         want = serve_launches(cfg, n)
         if counts != want:
             raise AssertionError(f"parallel_serve: {cfg.name}'s launches {counts}, want {want}")
+        if split is not None and (not split["bit_for_bit"] or split["launches"] != want
+                                  or not split["seq_split"]):
+            raise AssertionError(f"parallel_serve: {cfg.name}'s prefill inside the scope "
+                                 f"that splits the residual by sequence: {split}, want bit "
+                                 f"for bit with the unsplit steps and launches {want}")
         launches[cfg.name] = counts
+        if split is not None:
+            launches[f"{cfg.name} (split prefill scope)"] = split["launches"]
     return launches
+
+
+def seq_split_serve(cfg, mesh, params, batch, max_seq, n, unsplit):
+    """For a model of ``SEQ_SPLIT_SERVE``: the sharded steps again, inside a
+    cell's activation scope whose residual spec splits the residual by
+    sequence (``SP_RESIDUAL``: ``REPRO_PERF``'s ``seq_shard_acts``; ROADMAP
+    C38), against ``unsplit`` (``served_logits`` of the same steps without
+    the scope). At one model rank the split is the identity, so the tokens
+    and every step's logits are equal bit for bit; the launches are counted.
+    ``None`` for another model."""
+    if cfg.name not in SEQ_SPLIT_SERVE:
+        return None
+    with pctx.activation_sharding(residual=SP_RESIDUAL):
+        seq = serve_decode.seq_split(cfg, mesh, batch)
+        reset_counts()
+        got = served_logits(make_prefill_step(cfg, max_seq=max_seq, mesh=mesh),
+                            make_serve_step(cfg, mesh=mesh), params, batch, n)
+        counts = read_counts()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got[1], unsplit[1])]
+    return {"residual": SP_RESIDUAL, "seq_split": seq[0], "launches": counts,
+            "logits_equal": equal,
+            "bit_for_bit": all(equal) and bool(torch.equal(got[0], unsplit[0])),
+            "ms": {"prefill": got[2][0], "decode": got[2][1:]}}
 
 
 def seq_parallel_scope(cfg, run, mesh, batches):
@@ -2469,7 +2513,7 @@ def seq_parallel_scope(cfg, run, mesh, batches):
     state = trainer.shard_state(cfg, trainer.init_state(cfg, run, 0, device=DEV), mesh)
     step_fn = recorded_steps(trainer.make_train_step, log)(cfg, run, mesh=mesh)
     with pctx.activation_sharding(residual=SP_RESIDUAL):
-        seq = trainer.seq_parallel(cfg, mesh, trainer.seq_len(batches[0]))
+        seq = trainer.seq_parallel(cfg, mesh, pctx.residual_len(batches[0]))
         for batch in batches:
             state, _ = step_fn(state, trainer.shard_batch(batch, mesh))
     del state, step_fn
@@ -2733,6 +2777,10 @@ def phase_cost(smi):
 
 
 EXAMPLES_STEPS, EXAMPLES_CKPT_EVERY, EXAMPLES_PREEMPT = 40, 10, 20   # the train twin, 100M
+# the simulator examples' twins at the CPU test's arguments (host work, no launch)
+SIM_TWINS = {"torch_analyze_pipeline": ["--model", "8B", "--seqlen", "256",
+                                        "--knob", "tma_bw=0.5,1,2"],
+             "torch_simulate_dse": []}
 # a step that the JAX package's manager wrote (tests/test_torch_ckpt_jax.py makes
 # it): olmo-1b reduced after 2 train steps, fp32 state in the stacked layout
 JAX_CKPT = dict(dir=os.path.join("tests", "data", "jax_ckpt_olmo-1b"), step=2, arch="olmo-1b")
@@ -2805,7 +2853,7 @@ def run_example(name, argv):
            "launches_sm90": {"flash_fwd": fa.launches_sm90, "flash_decode": fd.launches_sm90},
            "launches_f32": {"flash_fwd": fa.launches_f32, "flash_decode": fd.launches_f32},
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    if result is not None:
+    if result is not None and "tokens_per_s" in result:
         row["tokens_per_s"] = result["tokens_per_s"]
     torch.cuda.empty_cache()
     return result, row
@@ -2834,6 +2882,9 @@ def phase_examples(kernels):
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    for name, argv in SIM_TWINS.items():
+        _, rows[name[len("torch_"):]] = run_example(name, argv)
+
     jax_ckpt = restore_jax_checkpoint()
     L_serve, L_train, steps = registry.get("qwen2.5-3b").num_layers, 8, EXAMPLES_STEPS
     # bf16 forward and decode launches: the quickstart trains the reduced olmo-1b's
@@ -2844,7 +2895,8 @@ def phase_examples(kernels):
             "serve_e2e": (12 * L_serve, serve["steps"] * L_serve),
             "train_e2e_whole": (2 * L_train * steps, 0),
             "train_e2e_preempted": (2 * L_train * EXAMPLES_PREEMPT, 0),
-            "train_e2e_resumed": (2 * L_train * (steps - EXAMPLES_PREEMPT), 0)}
+            "train_e2e_resumed": (2 * L_train * (steps - EXAMPLES_PREEMPT), 0),
+            "analyze_pipeline": (0, 0), "simulate_dse": (0, 0)}
     equal = resumed["losses"] == whole["losses"][EXAMPLES_PREEMPT:]
     emit({"phase": "examples", "scripts": rows, "resumed_losses_equal": equal,
           "train_e2e_losses": whole["losses"], "train_e2e_resumed_losses": resumed["losses"],

@@ -19,10 +19,11 @@ steps (``serve.decode``'s ``mesh=``, ``seq_shard`` the plan's
 (``sharding.serve_specs``: whole over the data axes, where the reference
 places them by ``param_specs``; a Mamba2 layer's fused leaves rank-major,
 ``sharding.rank_major``), its cache as ``sharding.serve_cache_specs`` says
-(``cache_specs``, a Mamba2 conv state rank-major). The steps keep the
-residual whole on every model rank: the ``seq_shard_acts`` that
-``REPRO_PERF`` sets for command-r-plus-104b's prefill is not applied there
-(ROADMAP C38).
+(``cache_specs``, a Mamba2 conv state rank-major). A prefill cell whose plan
+sets ``seq_shard_acts`` (``REPRO_PERF``'s command-r-plus-104b
+``prefill_32k``) runs in a scope whose residual spec names ``model`` on the
+sequence dim, and the sharded prefill of a dense, vlm or moe model then
+splits its residual by sequence (``serve.decode.seq_split``; ROADMAP C38).
 """
 from __future__ import annotations
 

@@ -91,13 +91,15 @@ def knob_attention(chunk: int, pv_bf16: bool, *, device, dtype, mode=None):
     At the defaults (chunk 512, P kept fp32) that is always the kernel route.
     Otherwise, on a CPU tensor or under ``mode="reference"`` (the plain route
     either way), ``flash_ref`` with those arguments, as the reference maps the
-    knobs. On a CUDA tensor nothing falls back to the plain version: ``pv_bf16``
-    at chunk 512 with bf16 compute takes the kernel, which rounds P to bf16 so
-    already, and any other setting raises.
+    knobs. A meta tensor (the dry-run's count) takes what a CPU tensor takes:
+    it computes nothing, so nothing falls back. On a CUDA tensor nothing falls
+    back to the plain version: ``pv_bf16`` at chunk 512 with bf16 compute
+    takes the kernel, which rounds P to bf16 so already, and any other
+    setting raises (ROADMAP C15).
     """
     if chunk == 512 and not pv_bf16:
         return None
-    if torch.device(device).type == "cpu" or mode == "reference":
+    if torch.device(device).type in ("cpu", "meta") or mode == "reference":
         return partial(flash_ref, chunk=chunk, pv_bf16=pv_bf16)
     if chunk == 512 and dtype == torch.bfloat16:
         return None

@@ -213,8 +213,13 @@ def split_input(x):
     input ``x``: ``whole_input(x)``, or under sequence parallelism, where
     ``x`` is this rank's rows, the ranks' rows gathered into the whole
     sequence in fp32, the gradient's fp32 partials reduce-scattered back to
-    the rows and rounded once (``parallel.ctx.seq_gather_f32``)."""
-    return pctx.seq_gather_f32(x) if pctx.seq_parallel() else whole_input(x)
+    the rows and rounded once (``parallel.ctx.seq_gather_f32``); under the
+    serving scope (no gradient) gathered in ``x``'s type
+    (``parallel.ctx.seq_gather``): the products cast their input to their
+    weights' type either way (``split_mm``), so the values are the same."""
+    if not pctx.seq_parallel():
+        return whole_input(x)
+    return pctx.seq_gather(x) if pctx.cache_block() is not None else pctx.seq_gather_f32(x)
 
 
 def split_mm(x, w):

@@ -405,11 +405,17 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     those rows), the kv heads ``attn_apply`` collected (its own, or every
     kv head where they do not split over ``model``) and its block of the
     ``max_seq`` positions, of which it keeps the prompt's rows that fall
-    there, and the states of the heads the rank computes."""
+    there, and the states of the heads the rank computes. Under sequence
+    parallelism (the sharded prefill's ``seq_split``) ``hidden`` is this
+    model rank's rows, while the K/V each attention collects span the whole
+    sequence (``attention.attn_apply`` projects them from the gathered
+    one), so the cache is filled as without the split."""
     hidden, _, kvs = apply_lm(cfg, params, tokens, embeds=embeds,
                               attn_fn=attn_fn, remat=remat, moe_impl=moe_impl,
                               collect_kv=True, mode=mode)
-    B, S = tokens.shape[0], hidden.shape[1]
+    # the prompt's positions (the prefix counted), not the hidden rows: under
+    # sequence parallelism those are this model rank's block of them
+    B, S = tokens.shape[0], tokens.shape[1] + (0 if embeds is None else embeds.shape[1])
     max_seq = max_seq or S
     block = pctx.cache_block()
     first, count, heads = 0, max_seq, None

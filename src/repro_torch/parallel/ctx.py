@@ -50,9 +50,14 @@ which one rank's is not zero; the rows' gradients all-gathered). A sequence
 gathered alike on every rank, whose gradient every rank then computes whole,
 is ``seq_gather`` (a token mixer's input: Mamba2's, RWKV6's, a whole
 attention's); ``join_columns`` joins the ranks' output columns, or under the
-split turns them into this rank's rows. None of them sums per-rank partial products
-in the forward (ROADMAP C32): each moves values, sums fp32 partials of an
-input's gradient, or (``seq_rows_of_sum``) adds zeros to a value.
+split turns them into this rank's rows; ``seq_last`` brings the whole
+sequence's last row to every model rank (a prefill's greedy token). None of
+them sums per-rank partial products in the forward (ROADMAP C32): each moves
+values, sums fp32 partials of an input's gradient, or (``seq_rows_of_sum``)
+adds zeros to a value. Whether a step splits is ``seq_split``'s answer, the
+one rule of the train step and the serving steps (``residual_split``: the
+activation scope's residual spec names ``model`` on the sequence dim and tp
+divides the positions).
 
 ``serving_cache(mesh, block)`` is the serving steps' scope
 (``serve.decode``): the KV cache the model reads and writes is this rank's
@@ -340,6 +345,48 @@ def seq_parallel() -> bool:
     return bool(split) and model_group() is not None
 
 
+# the families whose sharded serving steps split the residual by sequence
+# (``seq_split``; ROADMAP C38); the hybrid, ssm and encdec prefills keep it
+# whole under the same scope (C38b)
+SERVE_SEQ_FAMILIES = ("dense", "vlm", "moe")
+
+
+def residual_len(batch) -> int:
+    """The positions of a batch's residual: its tokens behind a VLM's prefix
+    (an encoder-decoder's decoder tokens)."""
+    return batch["tokens"].shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+
+
+def residual_split(mesh, S: int) -> bool:
+    """Whether a step over ``mesh`` splits a residual of ``S`` positions by
+    sequence over ``model``: the enclosing activation scope's residual spec
+    (``activation_sharding``) names ``model`` on the sequence dim, and tp
+    divides ``S`` (where it does not, the residual stays whole, as
+    ``sharding.sanitize_spec`` drops an axis that does not divide; the
+    reference's XLA pads: ROADMAP C33). At one model rank the split is the
+    identity."""
+    act = current()
+    spec = act.get("residual") if act is not None else None
+    if spec is None or len(spec) < 2:
+        return False
+    names = spec[1] if isinstance(spec[1], tuple) else (spec[1],)
+    return "model" in names and S % shd.axis_sizes(mesh)["model"] == 0
+
+
+def seq_split(mesh, batch, splits: bool = True):
+    """``(seq, stacks)`` of ``batch`` for ``model_parallel`` and
+    ``sharding.compute_layout``, the one owner of the decision for the train
+    step and the serving steps: ``residual_split`` of the residual
+    (``residual_len``), and of each stack with a sequence of its own (an
+    encoder-decoder's encoder, by its frames); every answer false where the
+    step does not split the family's residual (``splits``: the serving steps
+    pass whether the family is one of ``SERVE_SEQ_FAMILIES``)."""
+    seq = splits and residual_split(mesh, residual_len(batch))
+    stacks = ({"encoder": splits and residual_split(mesh, batch["frames"].shape[1])}
+              if "frames" in batch else {})
+    return seq, stacks
+
+
 def _seq_first(x):
     """``x`` (B, S, ...) as (S, B, ...), contiguous: a collective's dim 0."""
     return x.transpose(0, 1).contiguous()
@@ -456,6 +503,17 @@ def join_columns(y):
     (``gather_from_model(y, -1)``), or under sequence parallelism turned into
     this rank's rows of the whole columns (``seq_columns_to_rows``)."""
     return seq_columns_to_rows(y) if seq_parallel() else gather_from_model(y, -1)
+
+
+def seq_last(x):
+    """The whole sequence's last position of ``x`` (B, S, ...), as (B, 1, ...)
+    on every model rank: under sequence parallelism, where ``x`` is this
+    rank's rows, the last model rank's last row (each rank's last row
+    gathered over ``model``, B rows a rank where gathering ``x`` would move
+    S/tp of them, and the last rank's kept; no gradient); ``x[:, -1:]``
+    elsewhere."""
+    last = x[:, -1:]
+    return all_gather(last, 1, model_group())[:, -1:] if seq_parallel() else last
 
 
 def seq_rows_of_sum(x):

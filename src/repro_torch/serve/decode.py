@@ -9,7 +9,13 @@ sharded train step is (``train.trainer``), forward only. The parameters are
 ``sharding.serve_specs``'s layout (``init_params`` and ``shard_params`` place
 them so, a Mamba2 layer's fused leaves rank-major; a step raises on a leaf
 placed otherwise), inside ``parallel.ctx.model_parallel`` with
-``sharding.model_layout`` and the residual whole on every model rank. Each
+``sharding.model_layout``. The decode step keeps the residual whole on every
+model rank. The prefill splits it by sequence over ``model`` where
+``parallel.ctx.seq_split`` says so (an enclosing residual spec that names
+``model`` on the sequence dim, tp dividing the prompt's positions, a family
+of ``parallel.ctx.SERVE_SEQ_FAMILIES``: ROADMAP C38), as the train step
+does; its greedy token is then read from the last model rank's last row
+(``parallel.ctx.seq_last``). Each
 rank serves its rows of the batch (``parallel.ctx.data_parallel`` over the
 data axes; every rank the whole batch where the rows do not divide, or under
 ``seq_shard``) from its block of every cache leaf, placed as
@@ -177,9 +183,11 @@ class _Layout:
         first, n = block.rows
         return x.narrow(0, first, n)
 
-    def scope(self, block):
+    def scope(self, block, seq=False, stacks=None):
+        """The model's scope over ``block``; ``seq`` / ``stacks``: the
+        residual split by sequence (``parallel.ctx.model_parallel``)."""
         s = contextlib.ExitStack()
-        s.enter_context(pctx.model_parallel(self.mesh, self.layout))
+        s.enter_context(pctx.model_parallel(self.mesh, self.layout, seq=seq, stacks=stacks))
         s.enter_context(pctx.serving_cache(self.mesh, block))
         if block.rows_split:
             s.enter_context(pctx.data_parallel(self.mesh))
@@ -247,13 +255,21 @@ def _contiguous_stride(shape):
     return tuple(reversed(stride))
 
 
+def seq_split(cfg, mesh, batch):
+    """The sharded prefill's ``(seq, stacks)`` over ``mesh`` for ``batch``:
+    ``parallel.ctx.seq_split``, every answer false for a family outside
+    ``parallel.ctx.SERVE_SEQ_FAMILIES`` (ROADMAP C38b)."""
+    return pctx.seq_split(mesh, batch, cfg.family in pctx.SERVE_SEQ_FAMILIES)
+
+
 def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
                       attn_chunk: int = 512, cast_params: str = "none",
                       attn_pv_bf16: bool = False, mode=None, mesh=None,
                       seq_shard: bool = False):
     """The prefill step; over ``mesh`` when one is given (the module's
     docstring; ``seq_shard``: the cache's long-context layout, every rank
-    serving the whole batch)."""
+    serving the whole batch), its residual split by sequence where
+    ``parallel.ctx.seq_split`` says so."""
     lay = None if mesh is None else _Layout(cfg, mesh, seq_shard)
 
     def run(params, batch):
@@ -263,7 +279,7 @@ def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
                                  dtype=to_dtype(cfg.compute_dtype), mode=mode)
         hidden, cache = api.prefill(cfg, params, batch, max_seq=max_seq,
                                     remat=remat, attn_fn=attn_fn, mode=mode)
-        logits = api.unembed(cfg, params, hidden[:, -1:])
+        logits = api.unembed(cfg, params, pctx.seq_last(hidden))
         return greedy(logits), cache
 
     @torch.no_grad()
@@ -274,7 +290,8 @@ def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",
         s_enc = batch["frames"].shape[1] if "frames" in batch else None
         block = lay.block(B, max_seq, s_enc)
         local = {k: lay.rows(v, block) for k, v in batch.items()}
-        with lay.scope(block):
+        seq, stacks = seq_split(cfg, mesh, local)
+        with lay.scope(block, seq, stacks):
             next_tok, cache = run(lay.params(params), local)
         return next_tok, lay.placed_cache(cache, lay.cache_placements(B, max_seq, s_enc))
     return prefill_step

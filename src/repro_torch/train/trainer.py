@@ -29,10 +29,12 @@ heads), ``d_ff``, the vocabulary and the experts (or each expert's ``d_ff``)
 are partitioned over ``model``, as the reference's GSPMD step partitions
 them, in column-parallel products.
 
-Sequence parallelism (``seq_parallel``, its one owner): where the enclosing
-``parallel.ctx.activation_sharding`` scope's residual spec names ``model`` on
-the sequence dim (a train cell's plan, ``launch.specs._with_activation_ctx``)
-and tp divides the sequence, each model rank holds, between blocks, its rows
+Sequence parallelism (``seq_parallel``; the rule is
+``parallel.ctx.residual_split``, which the serving steps share): where the
+enclosing ``parallel.ctx.activation_sharding`` scope's residual spec names
+``model`` on the sequence dim (a train cell's plan,
+``launch.specs._with_activation_ctx``) and tp divides the sequence, each
+model rank holds, between blocks, its rows
 ``[r*S/tp, (r+1)*S/tp)`` of its data rows
 (``parallel.ctx.model_parallel(..., seq=True)``), in every family, and the
 replicated leaves it applies to those rows (the norms, a pair's bias, a whole
@@ -86,34 +88,16 @@ def route(cfg) -> str:
 def seq_parallel(cfg, mesh, S: int) -> bool:
     """Whether the sharded step over ``mesh`` splits ``cfg``'s residual of
     ``S`` positions (a VLM's prefix counted; an encoder's frames, for its own
-    stack) by sequence over ``model``: the enclosing activation scope's
-    residual spec names ``model`` on the sequence dim, and tp divides ``S``
-    (where it does not, the residual stays whole, as ``sharding.sanitize_spec``
-    drops an axis that does not divide; the reference's XLA pads: ROADMAP
-    C33). At one model rank the split is the identity."""
-    act = pctx.current()
-    spec = act.get("residual") if act is not None else None
-    if spec is None or len(spec) < 2 or route(cfg) != "partitioned":
-        return False
-    names = spec[1] if isinstance(spec[1], tuple) else (spec[1],)
-    return "model" in names and S % shd.axis_sizes(mesh)["model"] == 0
-
-
-def seq_len(batch) -> int:
-    """The positions of a batch's residual: its tokens behind a VLM's prefix
-    (an encoder-decoder's decoder tokens)."""
-    return batch["tokens"].shape[1] + (batch["embeds"].shape[1] if "embeds" in batch else 0)
+    stack) by sequence over ``model``: ``parallel.ctx.residual_split``, the
+    rule the serving steps share, for a family on the partitioned route."""
+    return route(cfg) == "partitioned" and pctx.residual_split(mesh, S)
 
 
 def seq_split(cfg, mesh, batch):
     """``(seq, stacks)`` of ``batch`` for ``parallel.ctx.model_parallel`` and
-    ``sharding.compute_layout``: ``seq_parallel`` of the residual, and of each
-    stack with a sequence of its own (an encoder-decoder's encoder, by its
-    frames)."""
-    seq = seq_parallel(cfg, mesh, seq_len(batch))
-    stacks = ({"encoder": seq_parallel(cfg, mesh, batch["frames"].shape[1])}
-              if "frames" in batch else {})
-    return seq, stacks
+    ``sharding.compute_layout``: ``parallel.ctx.seq_split`` for a family on
+    the partitioned route."""
+    return pctx.seq_split(mesh, batch, route(cfg) == "partitioned")
 
 
 @dataclass(frozen=True)

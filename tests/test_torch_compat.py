@@ -126,7 +126,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "repro_torch.launch.mesh", "repro_torch.launch.specs"}
         missing = need - set(names)
         assert not missing, missing
-        for name in ("torch_quickstart", "torch_serve_e2e", "torch_train_e2e"):
+        for name in ("torch_quickstart", "torch_serve_e2e", "torch_train_e2e",
+                     "torch_analyze_pipeline", "torch_simulate_dse"):
             spec = importlib.util.spec_from_file_location(name, f"examples/{name}.py")
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules

@@ -75,9 +75,9 @@ def _cfg(job):
                                **{"compute_dtype": "float32", **job.get("replace", {})})
 
 
-def _run_ranks(tmp_path, job):
+def _run_ranks(tmp_path, job, steps=STEPS):
     n = int(np.prod(job["mesh"]))
-    job = dict(job, steps=STEPS, store=str(tmp_path / "store"), out=str(tmp_path / "out"))
+    job = dict(job, steps=steps, store=str(tmp_path / "store"), out=str(tmp_path / "out"))
     procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(n), json.dumps(job)],
                               cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(n)]
@@ -176,9 +176,9 @@ def test_a_decode_group_spans_the_data_ranks(served, name):
         assert any(g[2] for g in out["moe_groups"])               # some choices dropped
 
 
-def _jax_logits(monkeypatch, cfg_j, params_j, inputs, max_seq):
-    """The JAX package's serve steps on one device: (tokens, the logits each
-    greedy token is taken from)."""
+def _jax_logits(monkeypatch, cfg_j, params_j, inputs, max_seq, steps=STEPS):
+    """The JAX package's serve steps on one device, a prefill and ``steps``
+    decode steps: (tokens, the logits each greedy token is taken from)."""
     seen = []
     unembed, dec = japi.unembed, japi.decode
 
@@ -198,7 +198,7 @@ def _jax_logits(monkeypatch, cfg_j, params_j, inputs, max_seq):
         params_j, {"tokens": jnp.asarray(inputs["tokens"])})
     toks = [np.asarray(tok)]
     step = jdecode.make_serve_step(cfg_j)
-    for _ in range(STEPS):
+    for _ in range(steps):
         tok, cache = step(params_j, cache, tok)
         toks.append(np.asarray(tok))
     return np.concatenate(toks, axis=1), seen

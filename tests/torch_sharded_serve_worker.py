@@ -9,9 +9,12 @@ runs one rank of ``JOB_JSON`` (the test starts one process a rank on a
 ``arch``, ``mesh`` (data, model), ``batch``, ``prompt`` (its length),
 ``max_seq``, ``steps`` (decode steps after the prefill); optional
 ``replace`` (config fields; the reduced config in fp32 compute is the
-default), ``seq_shard`` (the cache's long-context layout), ``store``,
-``out``. The parameters are ``api.init(cfg, 0)``'s, the prompts
-``serve_inputs``'s: the test serves the same on one device.
+default), ``seq_shard`` (the cache's long-context layout), ``residual``
+(the activation scope's residual spec the steps run in, as a cell's plan
+gives it: ``["data", "model", null]`` splits the prefill's residual by
+sequence, ``serve.decode.seq_split``), ``store``, ``out``. The parameters
+are ``api.init(cfg, 0)``'s, the prompts ``serve_inputs``'s: the test serves
+the same on one device.
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         tests/torch_sharded_serve_worker.py --chip --arch qwen2.5-3b --out F.json
@@ -25,10 +28,16 @@ decode step's logits and the share of equal greedy tokens; needs the whole
 model on one card), ``--cut num_layers=N`` to cut the depth. A first, short
 run warms the card; the second is timed. It writes the prefill ms, each
 decode step's ms, tokens/s, every rank's peak memory and the kernels' launch
-counts to ``F.json``. ``--long N`` runs the long-context decode instead: batch
-1 under the ``seq_shard`` layout, from a cache of N positions filled with
-seeded values (no prefill), ``--new`` timed steps after a warm one
-(``long_main``). ``--device cpu --reduced`` runs the same on gloo ranks on the
+counts to ``F.json``. ``--seq-acts`` serves the same prompts once more
+inside the activation scope of ``REPRO_PERF``'s ``seq_shard_acts`` plan (the
+residual split by sequence; the plan's ``attn_chunk`` / ``attn_pv_bf16``
+have no kernel on the card, ROADMAP C15, and are not set) and reports that
+run beside the first (``split``), its tokens and logits against the first's
+and, with ``--compare``, against one card's, and the unsplit steps' ms once
+more after it (unsplit, split, unsplit in turns). ``--long N`` runs the
+long-context decode instead: batch 1 under the ``seq_shard`` layout, from a
+cache of N positions filled with seeded values (no prefill), ``--new`` timed
+steps after a warm one (``long_main``). ``--device cpu --reduced`` runs the same on gloo ranks on the
 host, to rehearse.
 """
 import argparse
@@ -48,7 +57,7 @@ from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention, flash_decode, ops
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import api, attention, moe
+from repro_torch.models import api, attention, moe, transformer
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.serve import decode
@@ -78,22 +87,35 @@ def dropped_in_first_group(idx, cfg, group=512):
     return [T, g, int((pos.gather(1, first[:, None]) >= cap).sum())]
 
 
+SP_RESIDUAL = ("data", "model", None)       # a cell's residual spec split by sequence
+
+
+def scoped(residual):
+    """The activation scope of the residual spec ``residual`` (none: no scope)."""
+    if residual is None:
+        return contextlib.nullcontext()
+    return pctx.activation_sharding(residual=tuple(residual))
+
+
 class Recorder:
     """What a run's checks read, recorded while it serves: the logits each
     greedy token is taken from (gathered over a vocabulary split by
-    ``model``), each MoE routing's first dispatch group, the decode
-    partials' calls (``_decode_blocks``) and the kernel seam's decode calls
-    (a block with no filled row calls none), and any ``full_tensor``."""
+    ``model``), each MoE routing's first dispatch group (of the tokens the
+    dispatch queues: under sequence parallelism the model ranks' rows
+    gathered), the decode partials' calls (``_decode_blocks``) and the
+    kernel seam's decode calls (a block with no filled row calls none), the
+    input rows of every ``_block_apply`` call with whether the residual was
+    split there, and any ``full_tensor``."""
 
     def __init__(self, cfg):
         self.cfg = cfg
-        self.logits, self.groups = [], []
+        self.logits, self.groups, self.block_rows, self.prefill = [], [], set(), None
         self.blocks, self.decode_calls, self.partials_calls, self.gathers = 0, 0, 0, 0
 
     def __enter__(self):
-        self.saved = (decode.greedy, moe._route, attention._decode_blocks, ops.decode_forward,
-                      DTensor.full_tensor)
-        greedy, route, blocks, decode_forward, full_tensor = self.saved
+        self.saved = (decode.greedy, moe._routed, attention._decode_blocks, ops.decode_forward,
+                      DTensor.full_tensor, transformer._block_apply)
+        greedy, routed, blocks, decode_forward, full_tensor, block = self.saved
 
         def rec_greedy(logits):
             lay = pctx.layout()
@@ -103,10 +125,14 @@ class Recorder:
             self.logits.append(whole.float().reshape(whole.shape[0], -1).clone())
             return greedy(logits)
 
-        def rec_route(p, x2d, cfg):
-            out = route(p, x2d, cfg)
+        def rec_routed(p, x, cfg):
+            out = tuple(routed(p, x, cfg))
             self.groups.append(dropped_in_first_group(out[1], self.cfg))
             return out
+
+        def rec_block(p, x, cfg, **kw):
+            self.block_rows.add((int(x.shape[1]), pctx.seq_parallel()))
+            return block(p, x, cfg, **kw)
 
         def rec_blocks(*a, **kw):
             self.blocks += 1
@@ -121,13 +147,14 @@ class Recorder:
             self.gathers += 1
             return full_tensor(t, **kw)
 
-        decode.greedy, moe._route, attention._decode_blocks = rec_greedy, rec_route, rec_blocks
+        decode.greedy, moe._routed, attention._decode_blocks = rec_greedy, rec_routed, rec_blocks
         ops.decode_forward, DTensor.full_tensor = rec_decode, rec_full
+        transformer._block_apply = rec_block
         return self
 
     def __exit__(self, *exc):
-        (decode.greedy, moe._route, attention._decode_blocks, ops.decode_forward,
-         DTensor.full_tensor) = self.saved
+        (decode.greedy, moe._routed, attention._decode_blocks, ops.decode_forward,
+         DTensor.full_tensor, transformer._block_apply) = self.saved
 
 
 def one_device(cfg, params, inputs, max_seq: int, steps: int, device="cpu"):
@@ -177,12 +204,27 @@ def profile_summary(prof, wall_ms, n=10):
             "top_host_ops": host, "top_kernels": sorted(dev, key=lambda r: -r[1])[:n]}
 
 
-def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=False):
-    """The sharded steps over the prompts: (tokens (B, 1 + steps) of every
-    rank's rows, the ``CacheBlock``, the cache's local shape, a ``Recorder``,
-    ms of the prefill and of each decode step); with ``profile`` the last
-    decode step runs under ``torch.profiler`` and its summary
-    (``profile_summary``) is the sixth."""
+def prefill_record(cache):
+    """The prefill's cache on this rank: ``idx``, and the positions of its
+    block of the self K stack that hold a value in some layer, row or head
+    (``None`` for a family without one)."""
+    kv = next((cache[k] for k in ("k", "attn_k") if k in cache), None)
+    if kv is None:
+        return {"idx": cache["idx"], "filled": None}
+    k = kv.to_local() if isinstance(kv, DTensor) else kv
+    filled = (k.abs().amax(dim=(0, 1, 3, 4)) > 0).nonzero().flatten().tolist()
+    return {"idx": cache["idx"], "filled": filled}
+
+
+def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=False,
+          residual=None):
+    """The sharded steps over the prompts, inside the activation scope of
+    ``residual`` where given: (tokens (B, 1 + steps) of every rank's rows,
+    the ``CacheBlock``, the cache's local shape, a ``Recorder`` (its
+    ``prefill``: ``prefill_record`` of the prefill's cache), ms of the
+    prefill and of each decode step); with ``profile`` the last decode step
+    runs under ``torch.profiler`` and its summary (``profile_summary``) is
+    the sixth."""
     prefill = decode.make_prefill_step(cfg, max_seq=max_seq, mesh=mesh, seq_shard=seq_shard)
     step = decode.make_serve_step(cfg, mesh=mesh, seq_shard=seq_shard)
     batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
@@ -190,10 +232,12 @@ def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=
                             seq_shard=seq_shard)
     tok_pl = shd.placements((block.spec[1], None), mesh)
     ms, summary = [], None
-    with Recorder(cfg) as rec:
+    with Recorder(cfg) as rec, scoped(residual):
         t0 = _clock(device)
         tok, cache = prefill(params, batch)
         ms.append(_clock(device) - t0)
+        if torch.device(device).type == "cpu":      # on a card: not to move the peak
+            rec.prefill = prefill_record(cache)
         toks = [tok]
         for i in range(steps):
             glob = DTensor.from_local(tok, mesh, tok_pl,
@@ -267,20 +311,25 @@ def run_job(rank, world, job):
     del whole
     inputs = serve_inputs(cfg, job["batch"], job["prompt"])
     toks, block, local, rec, _, _ = serve(cfg, mesh, params, inputs, job["max_seq"],
-                                          job["steps"], job.get("seq_shard", False), "cpu")
+                                          job["steps"], job.get("seq_shard", False), "cpu",
+                                          residual=job.get("residual"))
     assert not rec.gathers
+    with scoped(job.get("residual")):
+        seq = decode.seq_split(cfg, mesh, {k: torch.from_numpy(v) for k, v in inputs.items()})
     out = {"tokens": _rows_of_every_rank(toks, block).tolist(),
+           "seq_split": seq, "block_rows": sorted(rec.block_rows),
            "logits": [_rows_of_every_rank(x, block).tolist() for x in rec.logits],
            "moe_groups": rec.groups,
            "block": block_dict(block),
            "cache_local_shape": kv_local_shape(local), "cache_local_shapes": local,
            "decode_blocks": rec.blocks, "decode_calls": rec.decode_calls,
-           "partials_calls": rec.partials_calls,
+           "partials_calls": rec.partials_calls, "prefill_cache": rec.prefill,
            "layout": dataclasses.asdict(shd.model_layout(cfg, job["mesh"][1]))}
     every = [None] * world
     dist.all_gather_object(every, {k: out[k] for k in ("block", "cache_local_shape",
                                                        "cache_local_shapes", "decode_blocks",
-                                                       "decode_calls", "partials_calls")})
+                                                       "decode_calls", "partials_calls",
+                                                       "prefill_cache", "block_rows")})
     out["ranks"] = every
     if rank == 0:
         with open(job["out"] + ".json", "w") as f:
@@ -379,6 +428,22 @@ def decode_steps(cfg, mesh, params, cache, n: int, device):
     return torch.cat(toks, dim=1), rec, ms
 
 
+def one_card_params(cfg, dev):
+    """The whole model's serving parameters on one card, each part cast to
+    the compute type as it is drawn (``api.init``'s ``place``): the values
+    of ``api.cast_params(cfg, api.init(cfg, 0))`` without the whole fp32
+    tree beside them."""
+    return api.init(cfg, 0, device=dev, place=lambda key, part: api.cast_params(
+        cfg, {key: part})[key])
+
+
+def _against(got, want):
+    """Max absolute and relative (to max(|x|, 1)) difference of two logits."""
+    diff = (got.cpu() - want.cpu()).abs()
+    return {"max_abs": float(diff.max()),
+            "max_rel": float((diff / want.cpu().abs().clamp(min=1.0)).max())}
+
+
 def long_main(args, cfg, mesh, dev, rank, world):
     """``--long N``: the long-context decode cell at batch 1, no prefill: a
     cache of N positions filled with seeded values (``seeded_cache``), one
@@ -410,7 +475,7 @@ def long_main(args, cfg, mesh, dev, rank, world):
     del params, cache, rec
     _reset_peak(dev)
     if args.compare and rank == 0:
-        whole = api.cast_params(cfg, api.init(cfg, 0, device=dev))
+        whole = one_card_params(cfg, dev)
         one_toks, one_rec, one_ms = decode_steps(
             cfg, None, whole, seeded_cache(cfg, None, 1, args.long, idx, dev), n + 1, dev)
         out["one_card"] = {"peak_gb": _peak(dev), "decode_ms": one_ms[1:]}
@@ -441,6 +506,9 @@ def chip_main(argv):
     ap.add_argument("--dtype", default=None, help="the compute type (the config's by default)")
     ap.add_argument("--profile", action="store_true",
                     help="the last decode step (and one card's, with --compare) profiled")
+    ap.add_argument("--seq-acts", action="store_true",
+                    help="serve once more with the prefill's residual split by sequence "
+                         "(REPRO_PERF's seq_shard_acts scope), reported as 'split'")
     ap.add_argument("--long", type=int, default=None, metavar="N",
                     help="the long-context decode at batch 1 from a seeded cache of N "
                          "positions (long_main), no prefill")
@@ -502,24 +570,65 @@ def chip_main(argv):
            "launches": launches, "decode_partials_calls": rec.partials_calls,
            "set_up_peak_gb": [p[0] for p in peaks], "steps_peak_gb": [p[1] for p in peaks],
            "compute_dtype": cfg.compute_dtype, "profiled_decode_step": prof}
-    del params, rec
+    prefill_logits = _rows_of_every_rank(rec.logits[0], block)
+    del rec
+    split = None
+    if args.seq_acts:
+        split, s_toks, s_logits = split_run(cfg, mesh, params, inputs, max_seq, args.new, dev,
+                                            block, world)
+        split["tokens_equal_unsplit"] = float((s_toks.cpu() == toks.cpu()).float().mean())
+        split["prefill_logits_against_unsplit"] = _against(s_logits[0], prefill_logits)
+        split["first_decode_logits_against_unsplit"] = _against(s_logits[1], first_logits)
+        # the unsplit steps once more, after the split: unsplit, split, unsplit in turns
+        *_, again, _ = serve(cfg, mesh, params, inputs, max_seq, args.new - 1, False, dev)
+        split["unsplit_again_ms"] = {"prefill": again[0], "decode": again[1:]}
+        out["split"] = split
+    del params
     _reset_peak(dev)
     if args.compare and rank == 0:
-        whole = api.cast_params(cfg, api.init(cfg, 0, device=dev))
+        whole = one_card_params(cfg, dev)
         one_device(cfg, whole, inputs, max_seq, 1, device=dev)           # warm
         t0 = _clock(dev)
         one, one_rec = one_device(cfg, whole, inputs, max_seq, args.new - 1, device=dev)
         one_ms = _clock(dev) - t0
         want = one_rec.logits[1].cpu()
-        diff = (first_logits.cpu() - want).abs()
+        first = _against(first_logits, want)
         out["one_card"] = {"peak_gb": _peak(dev), "serve_ms": one_ms,
                            "prefill_ms": one_rec.ms[0], "decode_ms": one_rec.ms[1:],
                            "tokens_per_s": args.batch * args.new / (one_ms / 1e3)}
         out["equal_token_share"] = float((one.cpu() == toks.cpu()).float().mean())
-        out["first_decode_logits_max_abs"] = float(diff.max())
-        out["first_decode_logits_max_rel"] = float((diff / want.abs().clamp(min=1.0)).max())
+        out["first_decode_logits_max_abs"] = first["max_abs"]
+        out["first_decode_logits_max_rel"] = first["max_rel"]
+        out["prefill_logits_against_one_card"] = _against(prefill_logits, one_rec.logits[0])
+        if split is not None:
+            split["tokens_equal_one_card"] = float((one.cpu() == s_toks.cpu()).float().mean())
+            split["prefill_logits_against_one_card"] = _against(s_logits[0], one_rec.logits[0])
+            split["first_decode_logits_against_one_card"] = _against(s_logits[1], want)
         del whole
     _finish(args, out, rank, store)
+
+
+def split_run(cfg, mesh, params, inputs, max_seq, new, dev, block, world):
+    """``--seq-acts``: the same prompts served inside the activation scope of
+    ``REPRO_PERF``'s ``seq_shard_acts`` plan (``SP_RESIDUAL``: the prefill's
+    residual split by sequence, ``serve.decode.seq_split``), a short warm
+    run first: (its record, tokens of every rank's rows, the prefill's and
+    the first decode step's logits)."""
+    serve(cfg, mesh, params, inputs, max_seq, 1, False, dev, residual=SP_RESIDUAL)
+    _reset_peak(dev)
+    before = _launches()
+    toks, _, local, rec, ms, _ = serve(cfg, mesh, params, inputs, max_seq, new - 1, False, dev,
+                                       residual=SP_RESIDUAL)
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    peaks = [None] * world
+    dist.all_gather_object(peaks, _peak(dev))
+    with scoped(SP_RESIDUAL):
+        seq = decode.seq_split(cfg, mesh, {k: torch.from_numpy(v) for k, v in inputs.items()})
+    record = {"residual": SP_RESIDUAL, "seq_split": seq[0], "prefill_ms": ms[0],
+              "decode_ms": ms[1:], "launches": launches, "steps_peak_gb": peaks,
+              "cache_local_shapes": local}
+    logits = [_rows_of_every_rank(x, block) for x in rec.logits[:2]]
+    return record, _rows_of_every_rank(toks, block), logits
 
 
 def _finish(args, out, rank, store):

@@ -154,12 +154,13 @@ Phases, each printing one JSON line:
            serve.decode.init_params: tokens and every step's logits equal
            the unsharded steps' bit for bit, launches asserted (one bf16
            forward an attention use, one bf16 decode a self- or
-           cross-attention a step; none for rwkv6) and printed; qwen2.5-3b
-           once more inside a cell's activation scope whose residual spec
-           splits the prefill's residual by sequence (REPRO_PERF's
-           seq_shard_acts; serve.decode.seq_split holds): at one model rank
-           the split is the identity, so tokens and logits equal the unsplit
-           sharded steps' bit for bit, with the same launches
+           cross-attention a step; none for rwkv6) and printed; each of the
+           four once more inside a cell's activation scope whose residual
+           spec splits the prefill's residual by sequence (REPRO_PERF's
+           seq_shard_acts; serve.decode.seq_split holds for every family,
+           whisper's encoder too): at one model rank the split is the
+           identity, so tokens and logits equal the unsplit sharded steps'
+           bit for bit, with the same launches
   examples the port's example scripts (examples/torch_*.py) on the card, in
            this process, each through its main(): torch_quickstart as the
            JAX package's quickstart sizes it (reduced olmo-1b, 8 steps, then 6
@@ -278,6 +279,7 @@ FWD_GRID = [  # B, H, Hkv, L, S, D
     (4, 20, 20, 1500, 1500, 64),   # its encoder (non-causal), ragged
     (4, 5, 5, 64, 1500, 64),       # its cross-attention on a rank's 5 heads (tp 4)
     (4, 5, 5, 1500, 1500, 64),     # its encoder on a rank's 5 heads (tp 4)
+    (1, 5, 5, 4096, 1500, 64),     # its cross-attention after a long prompt (tp 4), cut to 4096
 ]
 FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (1, 16, 2, 1024, 1024, 64),
@@ -294,6 +296,9 @@ FWD_EXTRA = [  # causal, both types: deep K/V rings, many diagonal tiles
     (4, 5, 5, 64, 64, 64),         # whisper-large-v3's decoder prefill, a rank's 5 heads
     (1, 24, 2, 4096, 4096, 128),   # command-r-plus-104b's prefill on a rank's heads (tp 4),
                                    # G 12; at its 32768 positions the plain scores need ~103 GB
+    (1, 8, 8, 4096, 4096, 112),    # zamba2-7b's split prefill of a 32768-token prompt on a
+    (1, 5, 5, 4096, 4096, 64),     # rank's 8 heads (tp 4) and whisper-large-v3's decoder on 5,
+                                   # each cut to 4096 positions
 ]
 FWD_STAGES = [  # bf16, both masks, at every ring depth the forward is built with
     (2, 4, 4, 100, 100, 64),       # ragged: not a multiple of the tile
@@ -330,6 +335,8 @@ DECODE_EXTRA = [  # both types: the kernels' edges
     (8, 8, 8, 528, 112, 520),      # zamba2-7b's decode on a rank's 8 heads (tp 4)
     (4, 5, 5, 80, 64, 70),         # whisper-large-v3's self step on a rank's 5 heads
     (4, 5, 5, 1500, 64, 1500),     # its cross step on a rank's 5 heads
+    (1, 8, 8, 32772, 112, 32769),  # zamba2-7b's first step after a 32768-token prompt (tp 4)
+    (1, 5, 5, 32772, 64, 32769),   # whisper-large-v3's self step after one (tp 4)
 ]
 TRAIN = dict(arch="olmo-1b", batch=4, seq=512, steps=5)
 TRAIN_GRAD_CASES = [  # (B, H, Hkv, L = S, D), dtype: causal attention gradients
@@ -394,7 +401,7 @@ SERVE_PARALLEL = [dict(arch="qwen2.5-3b", batch=4, prompt_len=512, new_tokens=8)
                   dict(arch="rwkv6-7b", batch=4, prompt_len=512, new_tokens=8),
                   dict(arch="whisper-large-v3", batch=4, prompt_len=64, new_tokens=8)]
 # served once more inside a scope that splits the prefill's residual by sequence
-SEQ_SPLIT_SERVE = ("qwen2.5-3b",)
+SEQ_SPLIT_SERVE = tuple(spec["arch"] for spec in SERVE_PARALLEL)
 COST = dict(arch="qwen2.5-3b", prompt_len=512, slots=4, clen=520, max_seq=1024)
 BOUND_OVER_BUSY = 1.05  # a roofline bound above the card's own busy time means a count or a
                         # constant is wrong; 5 % for the profiler's own spread

@@ -46,6 +46,7 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[],
                     metavar="KEY=VALUE", help="CellPlan override")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--log", default=str(LOG), help="the JSON list each run is appended to")
     args = ap.parse_args(argv)
 
     cfg = registry.get(args.arch)
@@ -81,14 +82,20 @@ def main(argv=None):
         "useful_flops_ratio": r["useful_flops_ratio"],
         "roofline_fraction": r["roofline_fraction"],
         "peak_gb": rec["mem"]["peak_bytes"] / 1e9,
+        "flops_per_device": rec["flops_per_device"],
+        "bytes_per_device": rec["bytes_per_device"],
+        "collective_bytes_per_device": rec["collective_bytes_per_device"],
+        "seq_split": (specs_lib.prefill_split(cfg, shape, mesh, plan)
+                      if shape.kind == "prefill" else None),
         "collectives": rec["collectives"],
         "wall_s": round(time.time() - t0, 1),
     }
     print(json.dumps(out, indent=1))
-    LOG.parent.mkdir(parents=True, exist_ok=True)
-    log = json.loads(LOG.read_text()) if LOG.exists() else []
+    log_path = Path(args.log)
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    log = json.loads(log_path.read_text()) if log_path.exists() else []
     log.append(out)
-    LOG.write_text(json.dumps(log, indent=1))
+    log_path.write_text(json.dumps(log, indent=1))
     return 0
 
 

@@ -21,9 +21,10 @@ places them by ``param_specs``; a Mamba2 layer's fused leaves rank-major,
 ``sharding.rank_major``), its cache as ``sharding.serve_cache_specs`` says
 (``cache_specs``, a Mamba2 conv state rank-major). A prefill cell whose plan
 sets ``seq_shard_acts`` (``REPRO_PERF``'s command-r-plus-104b
-``prefill_32k``) runs in a scope whose residual spec names ``model`` on the
-sequence dim, and the sharded prefill of a dense, vlm or moe model then
-splits its residual by sequence (``serve.decode.seq_split``; ROADMAP C38).
+``prefill_32k``, or ``--set seq_shard_acts=true``) runs in a scope whose
+residual spec names ``model`` on the sequence dim, and the sharded prefill
+of every family then splits its residual by sequence
+(``serve.decode.seq_split``; ROADMAP C38, C38b).
 """
 from __future__ import annotations
 
@@ -167,7 +168,9 @@ def _placed(specs, mesh):
     return tree.map_leaves(lambda s: shd.placements(s, mesh), specs, is_leaf=shd.is_spec)
 
 
-def _with_activation_ctx(fn, plan: CellPlan, mesh, cfg=None):
+def _activation_kinds(plan: CellPlan, mesh, cfg=None):
+    """The activation scope's specs of a cell's plan on ``mesh``
+    (``parallel.ctx.activation_sharding``'s keywords)."""
     dp = shd.fsdp_axes(mesh)
     dpa = dp if len(dp) > 1 else dp[0]
     residual = (dpa, "model" if plan.seq_shard_acts else None, None)
@@ -188,12 +191,25 @@ def _with_activation_ctx(fn, plan: CellPlan, mesh, cfg=None):
             kinds["kv_collect"] = (dpa, "model", None, None)
             kinds["scores_dec"] = (
                 None if plan.seq_shard_cache else dpa, None, None, None, "model")
+    return kinds
+
+
+def _with_activation_ctx(fn, plan: CellPlan, mesh, cfg=None):
+    kinds = _activation_kinds(plan, mesh, cfg)
 
     def wrapped(*args):
         with pctx.activation_sharding(**kinds):
             return fn(*args)
 
     return wrapped
+
+
+def prefill_split(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: CellPlan):
+    """``(seq, stacks)`` of a prefill cell's sharded step inside the cell's
+    activation scope: whether it splits the residual (an encoder's frames)
+    by sequence (``serve.decode.seq_split``)."""
+    with pctx.activation_sharding(**_activation_kinds(plan, mesh, cfg)):
+        return serve_decode.seq_split(cfg, mesh, batch_struct(cfg, shape, kind="prefill"))
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,

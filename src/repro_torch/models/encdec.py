@@ -201,7 +201,12 @@ def prefill_encdec(cfg, params, frames, tokens, *, max_seq=None, remat="full", m
     the self cache's block of its batch rows, kv heads and ``max_seq``
     positions, and the cross cache's (``block.cross``) of the kv heads the
     rank's q heads project (``attention.project_cross_kv``) and of the
-    encoder's positions, which split where the heads do not."""
+    encoder's positions, which split where the heads do not. Under sequence
+    parallelism (the sharded prefill's ``seq_split``, each stack by its own
+    length) the cross K/V come from the encoder output gathered once and
+    the self K/V from each attention's gathered sequence, so both caches are
+    filled as without the split, and the hidden state returned is this model
+    rank's rows of the decoder's."""
     enc_h = encode(cfg, params, frames, remat=remat, mode=mode)
     B, S = tokens.shape
     max_seq = max_seq or S

@@ -409,7 +409,10 @@ def prefill_lm(cfg, params, tokens, *, embeds=None, attn_fn=None,
     parallelism (the sharded prefill's ``seq_split``) ``hidden`` is this
     model rank's rows, while the K/V each attention collects span the whole
     sequence (``attention.attn_apply`` projects them from the gathered
-    one), so the cache is filled as without the split."""
+    one), so the cache is filled as without the split; so are the states,
+    whose scans run on the gathered sequence (a Mamba2 conv state its last
+    ``K - 1`` positions, an RWKV6 token-shift carry its last row, on every
+    rank)."""
     hidden, _, kvs = apply_lm(cfg, params, tokens, embeds=embeds,
                               attn_fn=attn_fn, remat=remat, moe_impl=moe_impl,
                               collect_kv=True, mode=mode)

@@ -345,12 +345,6 @@ def seq_parallel() -> bool:
     return bool(split) and model_group() is not None
 
 
-# the families whose sharded serving steps split the residual by sequence
-# (``seq_split``; ROADMAP C38); the hybrid, ssm and encdec prefills keep it
-# whole under the same scope (C38b)
-SERVE_SEQ_FAMILIES = ("dense", "vlm", "moe")
-
-
 def residual_len(batch) -> int:
     """The positions of a batch's residual: its tokens behind a VLM's prefix
     (an encoder-decoder's decoder tokens)."""
@@ -379,8 +373,9 @@ def seq_split(mesh, batch, splits: bool = True):
     step and the serving steps: ``residual_split`` of the residual
     (``residual_len``), and of each stack with a sequence of its own (an
     encoder-decoder's encoder, by its frames); every answer false where the
-    step does not split the family's residual (``splits``: the serving steps
-    pass whether the family is one of ``SERVE_SEQ_FAMILIES``)."""
+    step does not split the family's residual (``splits``: the train step
+    passes whether the family takes its partitioned route; the serving steps
+    split every family, ROADMAP C38 and C38b)."""
     seq = splits and residual_split(mesh, residual_len(batch))
     stacks = ({"encoder": splits and residual_split(mesh, batch["frames"].shape[1])}
               if "frames" in batch else {})

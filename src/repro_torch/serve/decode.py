@@ -12,10 +12,14 @@ placed otherwise), inside ``parallel.ctx.model_parallel`` with
 ``sharding.model_layout``. The decode step keeps the residual whole on every
 model rank. The prefill splits it by sequence over ``model`` where
 ``parallel.ctx.seq_split`` says so (an enclosing residual spec that names
-``model`` on the sequence dim, tp dividing the prompt's positions, a family
-of ``parallel.ctx.SERVE_SEQ_FAMILIES``: ROADMAP C38), as the train step
-does; its greedy token is then read from the last model rank's last row
-(``parallel.ctx.seq_last``). Each
+``model`` on the sequence dim, tp dividing the prompt's positions; an
+encoder-decoder's encoder by its own frames: ROADMAP C38, C38b), as the
+train step does, in every family; its greedy token is then read from the
+last model rank's last row (``parallel.ctx.seq_last``). The token mixers
+run on the gathered sequence, so the K/V stacks, the cross cache and the
+per-layer states a split prefill returns are the whole sequence's, as
+without the split (a Mamba2 conv state's last rows, an RWKV6 token-shift
+carry the whole sequence's last row). Each
 rank serves its rows of the batch (``parallel.ctx.data_parallel`` over the
 data axes; every rank the whole batch where the rows do not divide, or under
 ``seq_shard``) from its block of every cache leaf, placed as
@@ -257,9 +261,9 @@ def _contiguous_stride(shape):
 
 def seq_split(cfg, mesh, batch):
     """The sharded prefill's ``(seq, stacks)`` over ``mesh`` for ``batch``:
-    ``parallel.ctx.seq_split``, every answer false for a family outside
-    ``parallel.ctx.SERVE_SEQ_FAMILIES`` (ROADMAP C38b)."""
-    return pctx.seq_split(mesh, batch, cfg.family in pctx.SERVE_SEQ_FAMILIES)
+    ``parallel.ctx.seq_split``, the train step's rule, for every family
+    (ROADMAP C38, C38b). ``cfg`` is not read: the family does not decide."""
+    return pctx.seq_split(mesh, batch)
 
 
 def make_prefill_step(cfg, *, max_seq: int, remat: str = "full",

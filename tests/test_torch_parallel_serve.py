@@ -177,8 +177,9 @@ def test_a_decode_group_spans_the_data_ranks(served, name):
 
 
 def _jax_logits(monkeypatch, cfg_j, params_j, inputs, max_seq, steps=STEPS):
-    """The JAX package's serve steps on one device, a prefill and ``steps``
-    decode steps: (tokens, the logits each greedy token is taken from)."""
+    """The JAX package's serve steps on one device, a prefill of ``inputs``
+    (the prompts, an encoder-decoder's frames) and ``steps`` decode steps:
+    (tokens, the logits each greedy token is taken from)."""
     seen = []
     unembed, dec = japi.unembed, japi.decode
 
@@ -195,7 +196,7 @@ def _jax_logits(monkeypatch, cfg_j, params_j, inputs, max_seq, steps=STEPS):
     monkeypatch.setattr(japi, "unembed", rec_unembed)
     monkeypatch.setattr(japi, "decode", rec_decode)
     tok, cache = jdecode.make_prefill_step(cfg_j, max_seq=max_seq)(
-        params_j, {"tokens": jnp.asarray(inputs["tokens"])})
+        params_j, {k: jnp.asarray(v) for k, v in inputs.items()})
     toks = [np.asarray(tok)]
     step = jdecode.make_serve_step(cfg_j)
     for _ in range(steps):

@@ -181,6 +181,11 @@ def _batch(arch, tokens):
     return cfg, out
 
 
+# whether the encoder's stack splits inside the scope, by its 1500 frames at tp
+# (C33: 16 does not divide them, 4 does)
+ENCODER_SPLIT = {16: False, 4: True}
+
+
 @pytest.mark.parametrize("arch,tokens,tp,want", [
     ("command-r-plus-104b", 32768, 16, True),      # the REPRO_PERF cell
     ("olmo-1b", 30, 16, False),                    # 16 does not divide 30 (C33)
@@ -189,28 +194,32 @@ def _batch(arch, tokens):
     ("pixtral-12b", 32768 - 1024, 16, True),       # 1024 prefix positions counted
     ("pixtral-12b", 32768, 16, True),
     ("pixtral-12b", 32760, 16, False),
-    ("zamba2-7b", 32768, 16, False),               # C38b: the hybrid, ssm and encdec
-    ("rwkv6-7b", 32768, 16, False),                # prefills keep the residual whole
-    ("whisper-large-v3", 32768, 16, False),
+    ("zamba2-7b", 32768, 16, True),                # C38b closed: the hybrid, ssm and
+    ("rwkv6-7b", 32768, 16, True),                 # encdec prefills split as the others
+    ("whisper-large-v3", 32768, 16, True),         # the decoder split, the encoder whole
+    ("whisper-large-v3", 32768, 4, True),          # both stacks split (375 frames a rank)
+    ("zamba2-7b", 32760, 16, False),               # 16 does not divide 32760
 ])
 def test_the_serving_decision(arch, tokens, tp, want):
     """``serve.decode.seq_split`` under a residual spec that names ``model``
     on the sequence dim: true where tp divides the positions (a VLM's prefix
-    counted) for the dense, vlm and moe families, false for the hybrid, ssm
-    and encdec families (their encoder's stack too) and where tp does not
-    divide; false for every family outside the scope. The train step's
-    answer (``trainer.seq_split``) is the same rule, true for every family."""
+    counted), for every family, an encoder-decoder's encoder by its own
+    frames; false where tp does not divide, and for every family outside the
+    scope. It is the train step's answer (``trainer.seq_split``), the same
+    rule."""
     from repro_torch.train import trainer as ttrainer
     cfg, batch = _batch(arch, tokens)
     mesh = FakeMesh(data=2, model=tp)
-    stacks = {"encoder": False} if "frames" in batch else {}
-    assert tdecode.seq_split(cfg, mesh, batch) == (False, stacks)
+    whole = {"encoder": False} if "frames" in batch else {}
+    split = {"encoder": ENCODER_SPLIT[tp]} if "frames" in batch else {}
+    assert tdecode.seq_split(cfg, mesh, batch) == (False, whole)
     with pctx.activation_sharding(residual=("data", "model", None)):
-        assert tdecode.seq_split(cfg, mesh, batch) == (want, stacks)
+        assert tdecode.seq_split(cfg, mesh, batch) == (want, split)
         train = ttrainer.seq_split(cfg, mesh, batch)
+        assert tdecode.seq_split(cfg, mesh, batch) == train
     assert train[0] == (pctx.residual_len(batch) % tp == 0)
     with pctx.activation_sharding(residual=("data", None, None)):
-        assert tdecode.seq_split(cfg, mesh, batch) == (False, stacks)
+        assert tdecode.seq_split(cfg, mesh, batch) == (False, whole)
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])

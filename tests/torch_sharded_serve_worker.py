@@ -12,7 +12,8 @@ runs one rank of ``JOB_JSON`` (the test starts one process a rank on a
 default), ``seq_shard`` (the cache's long-context layout), ``residual``
 (the activation scope's residual spec the steps run in, as a cell's plan
 gives it: ``["data", "model", null]`` splits the prefill's residual by
-sequence, ``serve.decode.seq_split``), ``store``, ``out``. The parameters
+sequence, ``serve.decode.seq_split``), ``states`` (every rank's blocks of
+the prefill's cache written out, ``prefill_blocks``), ``store``, ``out``. The parameters
 are ``api.init(cfg, 0)``'s, the prompts ``serve_inputs``'s: the test serves
 the same on one device.
 
@@ -62,6 +63,8 @@ from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.serve import decode
 
+from torch_sharded_worker import STACK_BLOCKS
+
 
 def serve_inputs(cfg, batch: int, prompt: int, seed: int = 0):
     """The prompts (numpy int64, (batch, prompt)) and, for a vlm, the prefix
@@ -105,16 +108,19 @@ class Recorder:
     gathered), the decode partials' calls (``_decode_blocks``) and the
     kernel seam's decode calls (a block with no filled row calls none), the
     input rows of every ``_block_apply`` call with whether the residual was
-    split there, and any ``full_tensor``."""
+    split there, those of the hybrid, ssm and encdec stacks' blocks
+    (``STACK_BLOCKS``) likewise, and any ``full_tensor``."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.logits, self.groups, self.block_rows, self.prefill = [], [], set(), None
+        self.stack_rows, self.prefill_blocks = set(), None
         self.blocks, self.decode_calls, self.partials_calls, self.gathers = 0, 0, 0, 0
 
     def __enter__(self):
         self.saved = (decode.greedy, moe._routed, attention._decode_blocks, ops.decode_forward,
                       DTensor.full_tensor, transformer._block_apply)
+        self.saved_fns = {k: getattr(m, f) for k, (m, f) in STACK_BLOCKS.items()}
         greedy, routed, blocks, decode_forward, full_tensor, block = self.saved
 
         def rec_greedy(logits):
@@ -134,6 +140,12 @@ class Recorder:
             self.block_rows.add((int(x.shape[1]), pctx.seq_parallel()))
             return block(p, x, cfg, **kw)
 
+        def rec_stack(key, fn):
+            def run(p, x, *a, **kw):
+                self.stack_rows.add((key, int(x.shape[1]), pctx.seq_parallel()))
+                return fn(p, x, *a, **kw)
+            return run
+
         def rec_blocks(*a, **kw):
             self.blocks += 1
             return blocks(*a, **kw)
@@ -150,11 +162,15 @@ class Recorder:
         decode.greedy, moe._routed, attention._decode_blocks = rec_greedy, rec_routed, rec_blocks
         ops.decode_forward, DTensor.full_tensor = rec_decode, rec_full
         transformer._block_apply = rec_block
+        for key, (module, name) in STACK_BLOCKS.items():
+            setattr(module, name, rec_stack(key, self.saved_fns[key]))
         return self
 
     def __exit__(self, *exc):
         (decode.greedy, moe._routed, attention._decode_blocks, ops.decode_forward,
          DTensor.full_tensor, transformer._block_apply) = self.saved
+        for key, (module, name) in STACK_BLOCKS.items():
+            setattr(module, name, self.saved_fns[key])
 
 
 def one_device(cfg, params, inputs, max_seq: int, steps: int, device="cpu"):
@@ -221,7 +237,8 @@ def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=
     """The sharded steps over the prompts, inside the activation scope of
     ``residual`` where given: (tokens (B, 1 + steps) of every rank's rows,
     the ``CacheBlock``, the cache's local shape, a ``Recorder`` (its
-    ``prefill``: ``prefill_record`` of the prefill's cache), ms of the
+    ``prefill``: ``prefill_record`` of the prefill's cache; its
+    ``prefill_blocks``: ``local_blocks`` of it, on the host), ms of the
     prefill and of each decode step); with ``profile`` the last decode step
     runs under ``torch.profiler`` and its summary (``profile_summary``) is
     the sixth."""
@@ -238,6 +255,7 @@ def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=
         ms.append(_clock(device) - t0)
         if torch.device(device).type == "cpu":      # on a card: not to move the peak
             rec.prefill = prefill_record(cache)
+            rec.prefill_blocks = local_blocks(cache)
         toks = [tok]
         for i in range(steps):
             glob = DTensor.from_local(tok, mesh, tok_pl,
@@ -258,6 +276,14 @@ def serve(cfg, mesh, params, inputs, max_seq, steps, seq_shard, device, profile=
 def local_shapes(cache):
     """{"/"-joined path: the rank's block's shape} of each cache tensor."""
     return {"/".join(map(str, path)): tuple(t.to_local().shape)
+            for path, t in tree.leaves_with_paths({k: v for k, v in cache.items()
+                                                   if k != "idx"})}
+
+
+def local_blocks(cache):
+    """{"/"-joined path: a copy of the rank's block} of each cache tensor (the
+    decode steps write the K/V blocks in place)."""
+    return {"/".join(map(str, path)): t.to_local().clone()
             for path, t in tree.leaves_with_paths({k: v for k, v in cache.items()
                                                    if k != "idx"})}
 
@@ -318,6 +344,7 @@ def run_job(rank, world, job):
         seq = decode.seq_split(cfg, mesh, {k: torch.from_numpy(v) for k, v in inputs.items()})
     out = {"tokens": _rows_of_every_rank(toks, block).tolist(),
            "seq_split": seq, "block_rows": sorted(rec.block_rows),
+           "stack_rows": sorted(rec.stack_rows),
            "logits": [_rows_of_every_rank(x, block).tolist() for x in rec.logits],
            "moe_groups": rec.groups,
            "block": block_dict(block),
@@ -329,7 +356,11 @@ def run_job(rank, world, job):
     dist.all_gather_object(every, {k: out[k] for k in ("block", "cache_local_shape",
                                                        "cache_local_shapes", "decode_blocks",
                                                        "decode_calls", "partials_calls",
-                                                       "prefill_cache", "block_rows")})
+                                                       "prefill_cache", "block_rows",
+                                                       "stack_rows")}
+                           | ({"prefill_blocks": {k: v.tolist() for k, v in
+                                                  rec.prefill_blocks.items()}}
+                              if job.get("states") else {}))
     out["ranks"] = every
     if rank == 0:
         with open(job["out"] + ".json", "w") as f:
@@ -624,8 +655,9 @@ def split_run(cfg, mesh, params, inputs, max_seq, new, dev, block, world):
     dist.all_gather_object(peaks, _peak(dev))
     with scoped(SP_RESIDUAL):
         seq = decode.seq_split(cfg, mesh, {k: torch.from_numpy(v) for k, v in inputs.items()})
-    record = {"residual": SP_RESIDUAL, "seq_split": seq[0], "prefill_ms": ms[0],
-              "decode_ms": ms[1:], "launches": launches, "steps_peak_gb": peaks,
+    record = {"residual": SP_RESIDUAL, "seq_split": seq[0], "seq_stacks": seq[1],
+              "prefill_ms": ms[0], "decode_ms": ms[1:], "launches": launches,
+              "steps_peak_gb": peaks,
               "cache_local_shapes": local}
     logits = [_rows_of_every_rank(x, block) for x in rec.logits[:2]]
     return record, _rows_of_every_rank(toks, block), logits

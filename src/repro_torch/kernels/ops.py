@@ -17,6 +17,9 @@ wrappers); under ``mode="reference"`` it counts the plain version's own ops.
 With grad mode on and q, k or v requiring grad, ``mha_forward`` goes through
 ``flash_attention.FlashAttentionFn``: the same forward, and a backward (autograd
 of the plain version). Without grad (serving) it calls the wrapper directly.
+
+With grad off, each wrapper call is a span (``obs.spans``):
+``kernels.flash_attention``, ``kernels.flash_decode``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.obs.spans import serving_span
 
 
 def _check_mode(mode):
@@ -48,7 +52,8 @@ def mha_forward(q, k, v, *, causal: bool = True, mode: Optional[str] = None,
                                       or v.requires_grad):
         o = _fa.FlashAttentionFn.apply(qt, kt, vt, causal, stages)
     else:
-        o = _fa.flash_attention(qt, kt, vt, causal=causal, stages=stages)
+        with serving_span("kernels.flash_attention"):
+            o = _fa.flash_attention(qt, kt, vt, causal=causal, stages=stages)
     return o.transpose(1, 2)
 
 
@@ -65,8 +70,9 @@ def decode_forward(q, k_cache, v_cache, cache_len: int, *,
     if L != 1:
         raise ValueError(f"decode_forward takes one query token, got L={L}")
     fn = _fd.flash_decode_plain if mode == "reference" else _fd.flash_decode
-    out = fn(q.reshape(B, H, D), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-             cache_len, return_partials=return_partials, n_split=n_split)
+    with serving_span("kernels.flash_decode"):
+        out = fn(q.reshape(B, H, D), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+                 cache_len, return_partials=return_partials, n_split=n_split)
     if return_partials:
         return out
     return out.reshape(B, 1, H, D)

@@ -21,7 +21,12 @@ prediction for the serving workload on the H800 preset, as the JAX launcher
 does, and, where the JAX launcher prints its ``SimFA-TPU`` line, the
 ``SimFA-H100`` line: ``core/sm90``'s plan for the port's own bf16 decode kernel
 (its split count, predicted µs and bound) beside the kernel's default split,
-which the engine keeps.
+which the engine keeps. Its closing line gives, from the engine's request
+stamps, the p50 and p95 of each request's admission wait, its time to first
+token and its latency. The admission wait (``t_admit``) is when the host began
+to enqueue the request's prefill, which can run ahead of the card; the first
+token and the last (``t_first``, ``t_done``) are stamped after the decode
+step's readback, which waits for the card.
 """
 from __future__ import annotations
 
@@ -85,6 +90,14 @@ def sm90_decode_prediction(cfg, slots: int, max_seq: int) -> str:
             f"default n_split {rule.n_split}: {rule.latency*1e6:.1f} us")
 
 
+def stamp_quantiles(reqs, stamp: str, label: str) -> str:
+    """The p50 and p95 over ``reqs`` of the engine's stamp ``stamp`` less
+    its ``t_submit``, in ms, as text."""
+    ms = [(getattr(r, stamp) - r.t_submit) * 1e3 for r in reqs]
+    p50, p95 = np.percentile(ms, [50, 95])
+    return f"{label} p50 {p50:.1f} ms, p95 {p95:.1f} ms"
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -101,11 +114,10 @@ def main(argv=None):
                       device=device)
     del params
     rng = np.random.default_rng(0)
-    for i in range(args.requests):
-        eng.submit(Request(rid=i,
-                           prompt=rng.integers(0, cfg.vocab_size,
-                                               args.prompt_len),
-                           max_new=args.max_new))
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, args.prompt_len),
+                    max_new=args.max_new) for i in range(args.requests)]
+    for req in reqs:
+        eng.submit(req)
     t0 = time.time()
     while eng.queue or any(eng.active):
         eng.step()
@@ -115,7 +127,10 @@ def main(argv=None):
     toks = args.requests * args.max_new
     print(f"served {args.requests} requests / {toks} tokens of {cfg.name} on "
           f"{device} in {eng.steps} steps, {dt:.2f}s; "
-          f"{eng.straggler.slow_steps} straggler step(s)")
+          f"{eng.straggler.slow_steps} straggler step(s); "
+          f"{stamp_quantiles(reqs, 't_admit', 'admission wait (host)')}, "
+          f"{stamp_quantiles(reqs, 't_first', 'time to first token')}, "
+          f"{stamp_quantiles(reqs, 't_done', 'request latency')}")
     return 0
 
 

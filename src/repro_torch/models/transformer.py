@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import tree
 from repro_torch.models import attention, layers, mamba, moe, rwkv
+from repro_torch.obs.spans import serving_span
 from repro_torch.parallel import ctx as pctx
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
@@ -106,21 +107,23 @@ def _block_init(gen, cfg):
 
 def _block_apply(p, x, cfg, *, positions, kv=None, cache_index=None,
                  attn_fn=None, mode=None, moe_impl="einsum"):
-    h = layers.apply_norm(cfg.norm, p["attn_norm"], x)
-    h, new_kv = attention.attn_apply(
-        p["attn"], h, cfg, positions=positions, kv_cache=kv,
-        cache_index=cache_index, attn_fn=attn_fn, mode=mode)
-    x = x + h
-    h = layers.apply_norm(cfg.norm, p["mlp_norm"], x)
-    if cfg.family == "moe":
-        h, aux = moe.moe_apply(p["moe"], h, cfg, impl=moe_impl)
-        return x + h, new_kv, aux
-    # on purpose not as the reference, whose block runs the MLP at apply_mlp's
-    # default type (bf16) whatever cfg.compute_dtype says: here it follows the
-    # config. Every shipped config computes in bf16, where the two agree.
-    h = layers.apply_mlp(cfg.mlp, p["mlp"], h,
-                         dtype=layers.to_dtype(cfg.compute_dtype))
-    return x + h, new_kv, 0.0
+    with serving_span("model.attn"):
+        h = layers.apply_norm(cfg.norm, p["attn_norm"], x)
+        h, new_kv = attention.attn_apply(
+            p["attn"], h, cfg, positions=positions, kv_cache=kv,
+            cache_index=cache_index, attn_fn=attn_fn, mode=mode)
+        x = x + h
+    with serving_span("model.mlp"):
+        h = layers.apply_norm(cfg.norm, p["mlp_norm"], x)
+        if cfg.family == "moe":
+            h, aux = moe.moe_apply(p["moe"], h, cfg, impl=moe_impl)
+            return x + h, new_kv, aux
+        # on purpose not as the reference, whose block runs the MLP at apply_mlp's
+        # default type (bf16) whatever cfg.compute_dtype says: here it follows the
+        # config. Every shipped config computes in bf16, where the two agree.
+        h = layers.apply_mlp(cfg.mlp, p["mlp"], h,
+                             dtype=layers.to_dtype(cfg.compute_dtype))
+        return x + h, new_kv, 0.0
 
 
 def _mamba_layer_init(gen, cfg):

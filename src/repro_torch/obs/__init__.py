@@ -12,7 +12,10 @@ world — what Nsight Compute is to a real GPU:
   * :mod:`repro_torch.obs.report` — NCU-style per-kernel section report
     (speed-of-light %, occupancy, stall buckets);
   * :mod:`repro_torch.obs.manifest` — run provenance stamped onto every
-    simulate/sweep/bench artifact.
+    simulate/sweep/bench artifact;
+  * :mod:`repro_torch.obs.spans` — the port's own layers (engine, serve
+    steps, model, kernel seam, trainer) as named host ranges in an active
+    ``torch.profiler`` session, on the card's clock; a no-op otherwise.
 
 See docs/observability.md for the walkthrough.
 """

@@ -48,6 +48,7 @@ from repro_torch import tree
 from repro_torch.models import api
 from repro_torch.models.attention import knob_attention
 from repro_torch.models.layers import to_dtype
+from repro_torch.obs.spans import span
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 
@@ -313,15 +314,16 @@ def make_serve_step(cfg, *, mode=None, mesh=None, seq_shard: bool = False):
     @torch.no_grad()
     def serve_step(params, cache, tokens):
         """tokens: (B, 1) -> (next_token (B,1), cache); the cache is updated in place."""
-        if lay is None:
-            return run(params, cache, tokens)
-        B, (max_seq, s_enc) = tokens.shape[0], _cache_lengths(cache)
-        block = lay.block(B, max_seq, s_enc)
-        placements = lay.cache_placements(B, max_seq, s_enc)
-        local = lay.local_cache(cache, placements)
-        before = tree.leaves({k: v for k, v in local.items() if k != "idx"})
-        with lay.scope(block):
-            next_tok, local = run(lay.params(params), local, lay.rows(tokens, block))
-        lay.write_back(cache, local, before, placements)
-        return next_tok, cache
+        with span("serve.decode"):
+            if lay is None:
+                return run(params, cache, tokens)
+            B, (max_seq, s_enc) = tokens.shape[0], _cache_lengths(cache)
+            block = lay.block(B, max_seq, s_enc)
+            placements = lay.cache_placements(B, max_seq, s_enc)
+            local = lay.local_cache(cache, placements)
+            before = tree.leaves({k: v for k, v in local.items() if k != "idx"})
+            with lay.scope(block):
+                next_tok, local = run(lay.params(params), local, lay.rows(tokens, block))
+            lay.write_back(cache, local, before, placements)
+            return next_tok, cache
     return serve_step

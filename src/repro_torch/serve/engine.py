@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import api, transformer
+from repro_torch.obs.spans import span
 from repro_torch.serve.decode import make_serve_step
 
 
@@ -31,6 +32,12 @@ class Request:
     max_new: int = 16
     out: List[int] = field(default_factory=list)
     done: bool = False
+    # the engine's stamps, ``time.perf_counter()``: submitted, admitted (just
+    # before its prefill), its first token appended, marked done
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
 
 
 @dataclass
@@ -101,45 +108,54 @@ class ServeEngine:
         if len(req.prompt) != self.prompt_len:
             raise ValueError("engine instance serves fixed-length prompts: got "
                              f"{len(req.prompt)} tokens, expected {self.prompt_len}")
+        req.t_submit = time.perf_counter()
         self.queue.append(req)
 
     # --------------------------------------------------------------
     @torch.no_grad()
     def _prefill_slot(self, slot: int, req: Request):
         """Single-request prefill into the shared cache (slot-batched)."""
-        toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
-                               device=self.device)[None]
-        _, cache1 = api.prefill(self.cfg, self.params, {"tokens": toks},
-                                max_seq=self.max_seq, mode=self.mode)
-        transformer.write_slot(self.cfg, self.cache, slot, cache1)
-        # as in the reference engine: the engine-wide index follows the newest
-        # prompt, and the prompt's last token is fed again as the first decode input
-        self.cache["idx"] = cache1["idx"]
-        self.tokens[slot, 0] = int(req.prompt[-1])
+        with span("engine.prefill"):
+            toks = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
+                                   device=self.device)[None]
+            _, cache1 = api.prefill(self.cfg, self.params, {"tokens": toks},
+                                    max_seq=self.max_seq, mode=self.mode)
+            transformer.write_slot(self.cfg, self.cache, slot, cache1)
+            # as in the reference engine: the engine-wide index follows the newest
+            # prompt, and the prompt's last token is fed again as the first decode input
+            self.cache["idx"] = cache1["idx"]
+            self.tokens[slot, 0] = int(req.prompt[-1])
 
     def step(self):
         """One engine tick: refill empty slots, run one decode step."""
-        for i in range(self.slots):
-            if self.active[i] is None and self.queue:
-                req = self.queue.pop(0)
-                self._prefill_slot(i, req)
-                self.active[i] = req
-        if all(r is None for r in self.active):
-            return False
-        t0 = time.time()
-        next_tok, self.cache = self._decode(self.params, self.cache, self.tokens)
-        toks = next_tok[:, 0].tolist()          # waits for the step to finish
-        self.straggler.observe(time.time() - t0)
-        self.tokens = next_tok
-        self.steps += 1
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
-            req.out.append(int(toks[i]))
-            if len(req.out) >= req.max_new:
-                req.done = True
-                self.active[i] = None
-        return True
+        with span("engine.tick"):
+            for i in range(self.slots):
+                if self.active[i] is None and self.queue:
+                    req = self.queue.pop(0)
+                    req.t_admit = time.perf_counter()
+                    self._prefill_slot(i, req)
+                    self.active[i] = req
+            if all(r is None for r in self.active):
+                return False
+            t0 = time.perf_counter()
+            next_tok, self.cache = self._decode(self.params, self.cache, self.tokens)
+            with span("engine.wait"):
+                toks = next_tok[:, 0].tolist()          # waits for the step to finish
+            self.straggler.observe(time.perf_counter() - t0)
+            self.tokens = next_tok
+            self.steps += 1
+            with span("engine.emit"):
+                for i, req in enumerate(self.active):
+                    if req is None:
+                        continue
+                    req.out.append(int(toks[i]))
+                    if len(req.out) == 1:
+                        req.t_first = time.perf_counter()
+                    if len(req.out) >= req.max_new:
+                        req.done = True
+                        req.t_done = time.perf_counter()
+                        self.active[i] = None
+            return True
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         # as in the reference engine, the returned list stays empty: callers

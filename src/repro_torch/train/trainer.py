@@ -54,6 +54,10 @@ against and reached by no family: every parameter is gathered with
 ``full_tensor``, and every model rank of a data row computes that row at
 full width; only the state at rest is sharded over ``model``.
 
+The step is the span ``train.step``, each microbatch's forward and backward
+``train.grads`` and the optimizer's update ``train.optimizer``
+(``obs.spans``: host ranges while a profiler session is active).
+
 Every family of the registry is ported (an encdec batch carries its
 ``frames``); ``init_state`` and ``make_loss_fn`` raise ``NotImplementedError``
 for a family the port has no model of.
@@ -71,6 +75,7 @@ from repro_torch import tree
 from repro_torch.models import api, layers
 from repro_torch.models.attention import knob_attention
 from repro_torch.models.transformer import JAX_STACKED_DIMS
+from repro_torch.obs.spans import span
 from repro_torch.parallel import ctx as pctx
 from repro_torch.parallel import sharding as shd
 from repro_torch.train import optimizer as opt
@@ -300,7 +305,7 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
         seq, stacks = (False, {}) if mesh is None else seq_split(cfg, mesh, mb)
         full = leaves if gather is None else gather(params, leaves, seq, stacks)
         # the backward's checkpointed recomputes run the model again: in the scope
-        with scope(seq, stacks):
+        with span("train.grads"), scope(seq, stacks):
             total, metrics = loss_fn(tree.rebuild(params, full), mb)
             return torch.autograd.grad(total, leaves, allow_unused=True,
                                        materialize_grads=True), metrics
@@ -314,13 +319,14 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
         return {k: v.to_local() for k, v in batch.items()}
 
     def train_step(state: TrainState, batch):
-        if mesh is None:
-            return step(state, batch)
-        with pctx.data_parallel(mesh):
-            state, metrics = step(state, local_rows(batch))
-            for k in ("loss", "aux"):
-                metrics[k] = pctx.data_sum(metrics[k])
-        return state, metrics
+        with span("train.step"):
+            if mesh is None:
+                return step(state, batch)
+            with pctx.data_parallel(mesh):
+                state, metrics = step(state, local_rows(batch))
+                for k in ("loss", "aux"):
+                    metrics[k] = pctx.data_sum(metrics[k])
+            return state, metrics
 
     def step(state: TrainState, batch):
         params = state.params
@@ -346,8 +352,9 @@ def make_train_step(cfg, run: RunConfig, mode: Optional[str] = None, mesh=None):
             grads = [deq for deq, _ in pairs]
             ef = tree.rebuild(ef, [res for _, res in pairs])
 
-        params, new_opt, om = opt.apply_updates(
-            run.opt, params, tree.rebuild(params, grads), state.opt_state)
+        with span("train.optimizer"):
+            params, new_opt, om = opt.apply_updates(
+                run.opt, params, tree.rebuild(params, grads), state.opt_state)
         metrics = {k: v.detach() for k, v in dict(metrics, **om).items()}
         return TrainState(params, new_opt, ef), metrics
 

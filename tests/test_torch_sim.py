@@ -10,7 +10,8 @@ check. Two kinds of check hold them there:
   give equal results, exactly (the engine counts integers and both copies
   do the same float arithmetic);
 * drift: each copied module's source equals the reference module's source
-  after the rewrite, except for the deviations listed in ``DEVIATIONS``.
+  after the rewrite, except for the deviations listed in ``DEVIATIONS``;
+  ``obs/spans.py`` is the port's own (its layers' profiler spans).
 
 The simulator suites themselves (test_engine_equiv, test_kprog, test_faults,
 ...) run against the reference only; these few cases tie the copy to it.
@@ -53,6 +54,14 @@ DEVIATIONS = {
          "the copy's frames lie under repro_torch/: matching /repro/ would file all of "
          "the copy's own time under stdlib/other in subsystem_wall_breakdown"),
     ],
+    "obs/__init__.py": [
+        ("    simulate/sweep/bench artifact.\n",
+         "    simulate/sweep/bench artifact;\n"
+         "  * :mod:`repro_torch.obs.spans` — the port's own layers (engine, serve\n"
+         "    steps, model, kernel seam, trainer) as named host ranges in an active\n"
+         "    ``torch.profiler`` session, on the card's clock; a no-op otherwise.\n",
+         "the docstring names obs/spans.py, the port's own module beside the copy"),
+    ],
 }
 
 
@@ -84,7 +93,7 @@ def test_no_tpu_model_and_nothing_uncopied():
             for pkg in ("obs", "analysis", "faults", "core", "core/kprog", "utils", "data")
             for p in (PORT / pkg).glob("*.py")}
     assert held == set(copied_modules()) | {"utils/__init__.py", "utils/cost.py",
-                                            "data/__init__.py"}
+                                            "data/__init__.py", "obs/spans.py"}
 
 
 def test_subsystem_breakdown_names_the_copys_layers():
